@@ -1,0 +1,255 @@
+"""Ray source: emitting geometry + spectrum + divergence + polarization.
+
+Counterpart of ``optrace_tpu/geometry/ray_source.py``: ``create_rays(gen, N,
+...)`` makes the rays on the device of the ``torch.Generator`` it is given.
+
+Emitter kinds: Surface (uniform emittance), Point/Line. Image sources
+arrive with the image slice. Divergence None/Lambertian/Isotropic/Function
+(cone or 2D arc); orientation Constant/Converging/Function; polarization
+x/y/xy/Constant/Uniform/List/Function with transport onto each ray's
+transverse plane.
+"""
+
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .element import Element
+from .surface import Surface
+from .point import Point
+from .line import Line
+from ..spectrum.light_spectrum import LightSpectrum
+from ..ops import sampling
+from ..ops.vector import cross as tcross, normalize_safe
+from ..utils.property_checker import PropertyChecker as pc
+
+
+class RaySource(Element):
+
+    divergences: list = ["None", "Lambertian", "Isotropic", "Function"]
+    orientations: list = ["Constant", "Converging", "Function"]
+    polarizations: list = ["Constant", "Uniform", "List", "Function", "x", "y", "xy"]
+
+    abbr: str = "RS"
+    _allow_non_2D: bool = True
+
+    def __init__(self, surface, pos=None,
+                 divergence: str = "None", div_angle: float = 0.5,
+                 div_2d: bool = False, div_axis_angle: float = 0,
+                 div_func: Callable = None, div_args: dict = None,
+                 spectrum: LightSpectrum = None, power: float = 1.,
+                 s=None, s_sph=None, orientation: str = "Constant",
+                 conv_pos=None, or_func: Callable = None, or_args: dict = None,
+                 polarization: str = "Uniform", pol_angle: float = 0.,
+                 pol_angles=None, pol_probs=None, pol_func: Callable = None,
+                 pol_args: dict = None, **kwargs) -> None:
+        self._new_lock = False
+
+        if not isinstance(surface, (Surface, Point, Line)):
+            raise NotImplementedError("image sources arrive with the image slice "
+                                      "(ROADMAP: image sources)")
+        surface_ = surface
+
+        pos = pos if pos is not None else [0, 0, 0]
+        super().__init__(surface_, pos, **kwargs)
+
+        self.power = power
+        from ..presets.light_spectrum import d65 as d65_spectrum
+        self.spectrum = spectrum if spectrum is not None else d65_spectrum
+
+        self.polarization = polarization
+        self.pol_angle = pol_angle
+        self.pol_func = pol_func
+        self.pol_angles = pol_angles
+        self.pol_probs = pol_probs
+        self.pol_args = pol_args if pol_args is not None else {}
+
+        self.divergence = divergence
+        self.div_angle = div_angle
+        self.orientation = orientation
+        self.conv_pos = conv_pos if conv_pos is not None else [0, 0, 0]
+        self.or_func = or_func
+        self.or_args = or_args if or_args is not None else {}
+
+        if s_sph is None:
+            self.s = s if s is not None else [0, 0, 1]
+        else:
+            pc.check_type("s_sph", s_sph, (list, np.ndarray))
+            theta, phi = np.radians(s_sph[0]), np.radians(s_sph[1])
+            self.s = [np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)]
+
+        self.div_axis_angle = div_axis_angle
+        self.div_func = div_func
+        self.div_2d = div_2d
+        self._new_lock = True
+
+    # ------------------------------------------------------------------
+    def create_rays(self, gen: torch.Generator, N: int, no_pol: bool = False,
+                    power: float = None):
+        """Generate N rays (p, s, pols, weights, wavelengths) as f32 tensors
+        on the device of ``gen``. Every sampling stream draws from ``gen``
+        in turn, so the streams are independent."""
+        dev = gen.device
+        f32 = torch.float32
+
+        power = power if power is not None else self.power
+        weights = torch.full((N,), power / N, dtype=f32, device=dev)
+
+        pc.check_type("RaySource.spectrum", self.spectrum, LightSpectrum)
+        wavelengths = self.spectrum.random_wavelengths(gen, N).to(f32)
+
+        # starting positions
+        p = self.surface.random_positions(gen, N).to(f32)
+
+        # orientations
+        if self.orientation == "Constant":
+            s_or = torch.as_tensor(self.s, dtype=f32, device=dev).expand(N, 3)
+        elif self.orientation == "Converging":
+            s_or = normalize_safe(torch.as_tensor(self.conv_pos, dtype=f32, device=dev) - p)
+        elif self.orientation == "Function":
+            pc.check_callable("RaySource.or_func", self.or_func)
+            s_or = self.or_func(p[:, 0], p[:, 1], **self.or_args)
+        else:
+            raise RuntimeError(f"Unknown orientation '{self.orientation}'.")  # pragma: no cover
+
+        # divergence angles (theta from axis, alpha azimuthal)
+        div = self.divergence
+        if div == "Function":
+            pc.check_callable("RaySource.div_func", self.div_func)
+        div_rad = math.radians(self.div_angle)
+        div_sin = math.sin(div_rad)
+
+        if self.div_2d:
+            # 2D divergence: alpha takes two discrete values
+            a0 = math.radians(self.div_axis_angle)
+            alpha = sampling.inverse_transform_sampling(gen, N, [a0, a0 + math.pi], [1.0, 1.0],
+                                                        kind="discrete")
+
+        if div == "None":
+            s = s_or
+        else:
+            if div == "Lambertian" and not self.div_2d:
+                r, alpha = sampling.stratified_ring_sampling(gen, N, 0.0, div_sin, polar=True)
+                theta = torch.arcsin(r)
+            elif div == "Lambertian":
+                theta = torch.arcsin(sampling.stratified_interval_sampling(gen, N, 0.0, div_sin))
+            elif div == "Isotropic" and not self.div_2d:
+                r, alpha = sampling.stratified_ring_sampling(gen, N, 0.0, div_sin, polar=True)
+                # theta = arccos(1 - r²) rewritten via the half-angle
+                # identity: f32-stable for small cones, where 1 - r² rounds
+                # to ~6 discrete levels (ulp(1.0)=1.2e-7 vs r² ~ 1e-6) and
+                # would quantize the whole divergence distribution
+                theta = 2.0 * torch.arcsin(r * math.sqrt(0.5))
+            elif div == "Isotropic":
+                theta = sampling.stratified_interval_sampling(gen, N, 0.0, div_rad)
+            elif div == "Function" and not self.div_2d:
+                r, alpha = sampling.stratified_ring_sampling(gen, N, 0.0, div_sin, polar=True)
+                x = np.linspace(0.0, div_rad, 1000)
+                f = np.asarray(self.div_func(x, **self.div_args)) * np.sin(x)
+                theta = sampling.inverse_transform_from_u(r ** 2 / div_sin ** 2, x, f)
+            elif div == "Function":
+                x = np.linspace(0.0, div_rad, 1000)
+                f = np.asarray(self.div_func(x, **self.div_args))
+                theta = sampling.inverse_transform_sampling(gen, N, x, f)
+            else:
+                raise RuntimeError(f"Unknown divergence '{div}'.")  # pragma: no cover
+
+            # local frame around s_or: sy = [1,0,0] × s_or (normalized), sx = s_or × sy
+            fa = 1.0 / torch.sqrt(torch.clamp(1.0 - s_or[:, 0] ** 2, min=1e-12))
+            sy = torch.stack([torch.zeros_like(fa), -s_or[:, 2] * fa, s_or[:, 1] * fa], dim=-1)
+            sx = tcross(s_or, sy)
+            th = theta[:, None]
+            al = alpha[:, None]
+            s = torch.cos(th) * s_or + torch.sin(th) * (torch.cos(al) * sx + torch.sin(al) * sy)
+
+        # polarization
+        if no_pol:
+            pols = torch.full((N, 3), float("nan"), dtype=f32, device=dev)
+        else:
+            polm = self.polarization
+            if polm == "x":
+                ang = torch.zeros((N,), dtype=f32, device=dev)
+            elif polm == "y":
+                ang = torch.full((N,), math.pi / 2, dtype=f32, device=dev)
+            elif polm == "xy":
+                ang = sampling.inverse_transform_sampling(
+                    gen, N, [0.0, math.pi / 2], [1.0, 1.0], kind="discrete")
+            elif polm == "Constant":
+                ang = torch.full((N,), math.radians(self.pol_angle), dtype=f32, device=dev)
+            elif polm == "Uniform":
+                ang = sampling.stratified_interval_sampling(gen, N, 0.0, 2 * math.pi)
+            elif polm == "List":
+                pc.check_type("RaySource.pol_angles", self.pol_angles, (np.ndarray, list))
+                probs = self.pol_probs if self.pol_probs is not None else np.ones_like(self.pol_angles)
+                ang = torch.deg2rad(sampling.inverse_transform_sampling(
+                    gen, N, self.pol_angles, probs, kind="discrete"))
+            elif polm == "Function":
+                pc.check_callable("RaySource.pol_func", self.pol_func)
+                x = np.linspace(0.0, 2 * np.pi, 5000)
+                f = np.asarray(self.pol_func(x, **self.pol_args))
+                ang = torch.deg2rad(sampling.inverse_transform_sampling(gen, N, x, f))
+            else:
+                raise RuntimeError(f"Unknown polarization '{polm}'.")  # pragma: no cover
+
+            # transport the xy-plane polarization onto each ray's transverse
+            # plane. The in-plane frame axis comes from s_xy DIRECTLY
+            # (|ps| = 1 by construction): 1/sqrt(1−s_z²) is an f32 trap —
+            # normalize can round s_z one ulp above 1, the sqrt clamps to 0
+            # and a guard factor would turn some polarization vectors into
+            # garbage
+            zero = torch.zeros_like(ang)
+            pol0 = torch.stack([torch.cos(ang), torch.sin(ang), zero], dim=-1)
+            rxy = torch.hypot(s[:, 0], s[:, 1])
+            axial = rxy < 1e-9
+            fa = 1.0 / torch.where(axial, 1.0, rxy)
+            ps = torch.stack([s[:, 1] * fa, -s[:, 0] * fa, zero], dim=-1)
+            A_ts = ps[:, 0] * pol0[:, 0] + ps[:, 1] * pol0[:, 1]
+            A_tp = ps[:, 1] * pol0[:, 0] - ps[:, 0] * pol0[:, 1]
+            pp_ = tcross(ps, s)
+            pol_t = ps * A_ts[:, None] + pp_ * A_tp[:, None]
+            # axial rays: the xy-plane polarization is already transverse
+            pols = torch.where(axial[:, None], pol0, pol_t)
+
+        return p, s.contiguous(), pols, weights, wavelengths
+
+    # ------------------------------------------------------------------
+    def __setattr__(self, key: str, val: Any) -> None:
+        if key == "divergence":
+            pc.check_type(key, val, str)
+            pc.check_if_element(key, val, self.divergences)
+        elif key == "orientation":
+            pc.check_type(key, val, str)
+            pc.check_if_element(key, val, self.orientations)
+        elif key == "polarization":
+            pc.check_type(key, val, str)
+            pc.check_if_element(key, val, self.polarizations)
+        elif key in ("power", "div_angle"):
+            pc.check_type(key, val, (int, float))
+            val = float(val)
+            pc.check_above(key, val, 0)
+            if key == "div_angle":
+                pc.check_not_above(key, val, 90)
+        elif key in ("pol_angle", "div_axis_angle"):
+            pc.check_type(key, val, (int, float))
+            val = float(val)
+        elif key in ("div_func", "or_func", "pol_func"):
+            pc.check_none_or_callable(key, val)
+        elif key == "div_2d":
+            pc.check_type(key, val, bool)
+        elif key in ("s", "conv_pos") and val is not None:
+            pc.check_type(key, val, (list, np.ndarray))
+            val2 = np.asarray(val, dtype=np.float64)
+            pc.check_finite(key, val2)
+            if val2.shape[0] != 3:
+                raise ValueError(f"{key} needs to have 3 elements.")
+            if key == "s":
+                val2 = val2 / np.linalg.norm(val2)
+                if val2[2] <= 0:
+                    raise ValueError("Ray orientation s needs a positive z-component.")
+            super().__setattr__(key, val2)
+            return
+        elif key == "spectrum" and val is not None:
+            pc.check_type(key, val, LightSpectrum)
+        super().__setattr__(key, val)

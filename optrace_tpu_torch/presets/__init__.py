@@ -1,0 +1,7 @@
+"""Preset catalogs: spectral lines, spectra, refraction indices, geometries
+(counterpart of ``optrace_tpu/presets``)."""
+
+from . import spectral_lines  # noqa: F401
+from . import light_spectrum  # noqa: F401
+from . import refraction_index  # noqa: F401
+from . import geometry  # noqa: F401

@@ -1,0 +1,165 @@
+"""Scene compilation: Surface objects → pure functional descriptors.
+
+Counterpart of ``optrace_tpu/tracer/scene_compile.py``. The trace is a pure
+function of tensors; this module extracts from each host-side Surface a
+(params, hit_fn, normal_fn, mask_fn) quadruple where ``params`` is a dict of
+0-dim/(3,) tensors on the trace's device and the fns are closures over
+*static structure only*. Geometric quantities flow through the params dict,
+which keeps the plain trace differentiable w.r.t. the optical design.
+``host`` carries the same quantities as python floats: the run kernel's
+step table is built from them without a device round trip.
+
+Ported surface kinds: slit-less planar shapes (``rect``, ``ring``,
+``circle``) and ``conic`` (spheres included). A surface class that is not
+ported cannot be constructed, so nothing is ever substituted silently.
+"""
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import geom
+from ..geometry.surface import (Surface, CircularSurface, RingSurface, ConicSurface,
+                                RectangularSurface)
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+class SurfaceFns(NamedTuple):
+    """Functional form of one surface. All fns take the params dict first.
+
+    hit_fn(params, o, s) -> (t, valid, ill): o = p − pos local coords.
+    normal_fn(params, x, y) -> (N, 3) unit normals (local coords).
+    mask_fn(params, x, y) -> bool definition region (local coords).
+    """
+    params: dict
+    hit_fn: Callable
+    normal_fn: Callable
+    mask_fn: Callable
+    kind: str
+    is_flat: bool
+    host: dict = None     # params as python floats / numpy (same rounding)
+
+
+def _mask_circle_fn(params, x, y):
+    return geom.mask_circle(x, y, params["r"])
+
+
+def _mask_ring_fn(params, x, y):
+    return geom.mask_ring(x, y, params["ri"], params["r"])
+
+
+def _mask_rect_fn(params, x, y):
+    return geom.mask_rect(x, y, params["hw"], params["hh"], params["angle"])
+
+
+def _mask_slit_fn(params, x, y):
+    return geom.mask_slit(x, y, params["hw"], params["hh"],
+                          params["hwi"], params["hhi"], params["angle"])
+
+
+def _flat_hit_fn(params, o, s):
+    t = geom.hit_plane(o, s)
+    valid = torch.isfinite(t) & (t >= -geom.C_EPS)
+    return t, valid, torch.zeros(t.shape, dtype=torch.bool, device=t.device)
+
+
+def _flat_normal_fn(params, x, y):
+    return geom.normal_flat(x, y)
+
+
+def _conic_hit_fn(params, o, s):
+    t, valid = geom.hit_conic(o, s, params["rho"], params["k"],
+                              params["z_min_rel"], params["z_max_rel"])
+    return t, valid, torch.zeros(t.shape, dtype=torch.bool, device=t.device)
+
+
+def _conic_normal_fn(params, x, y):
+    return geom.normal_conic(x, y, params["rho"], params["k"])
+
+
+_KIND_FNS = {
+    "slit": (_flat_hit_fn, _flat_normal_fn, _mask_slit_fn, True),
+    "rect": (_flat_hit_fn, _flat_normal_fn, _mask_rect_fn, True),
+    "ring": (_flat_hit_fn, _flat_normal_fn, _mask_ring_fn, True),
+    "circle": (_flat_hit_fn, _flat_normal_fn, _mask_circle_fn, True),
+    "conic": (_conic_hit_fn, _conic_normal_fn, _mask_circle_fn, False),
+}
+
+
+def surface_fns(kind: str, params_np: dict, device, dtype=torch.float32) -> SurfaceFns:
+    """SurfaceFns of ``kind`` from a dict of host values. Every value is
+    rounded once to ``dtype``; tensors and host copies hold the same
+    numbers."""
+    if kind not in _KIND_FNS:
+        raise NotImplementedError(
+            f"surface kind '{kind}' is not ported yet (ROADMAP: asphere and tilted "
+            "step kinds, generic surfaces)")
+    npdt = _NP_DTYPES[dtype]
+    host = {k: np.asarray(v, dtype=npdt) for k, v in params_np.items()}
+    params = {k: torch.tensor(v, device=device) for k, v in host.items()}
+    hit_fn, normal_fn, mask_fn, is_flat = _KIND_FNS[kind]
+    return SurfaceFns(params, hit_fn, normal_fn, mask_fn, kind, is_flat, host)
+
+
+def compile_surface(surf: Surface, device, dtype=torch.float32) -> SurfaceFns:
+    """Build the functional descriptor for a host-side surface object.
+
+    ``dtype`` selects the parameter precision: f32 is the trace's working
+    type; f64 is the accuracy-oracle path.
+    """
+    base = {"pos": np.asarray(surf.pos, dtype=np.float64),
+            "z_max_rel": surf.z_max - surf.pos[2],
+            "z_min_rel": surf.z_min - surf.pos[2]}
+
+    if isinstance(surf, RectangularSurface):
+        return surface_fns("rect", dict(base, hw=surf.dim[0] / 2, hh=surf.dim[1] / 2,
+                                        angle=surf._angle), device, dtype)
+    if isinstance(surf, RingSurface):
+        return surface_fns("ring", dict(base, r=surf.r, ri=surf.ri), device, dtype)
+    if isinstance(surf, ConicSurface):   # includes SphericalSurface
+        return surface_fns("conic", dict(base, r=surf.r, rho=1.0 / surf.R, k=surf.k),
+                           device, dtype)
+    if isinstance(surf, CircularSurface):
+        return surface_fns("circle", dict(base, r=surf.r), device, dtype)
+    raise NotImplementedError(f"surface type {type(surf).__name__} is not ported yet")
+
+
+def steps_from_numpy(spec: list, device, dtype=torch.float32) -> list:
+    """Build a ``TraceStep`` list from a plain description.
+
+    ``spec`` holds one dict per step: ``kind`` (surface kind), ``action``,
+    ``pos_host`` (f64 vertex position), ``params`` (dict of numpy values:
+    ``pos, rho, k, r, ri, hw, hh, z_min_rel, z_max_rel, …``) and, for
+    refract steps, ``n1``/``n2`` as ``RefractionIndex`` constructor keyword
+    dicts (``n_type`` plus ``coeff`` or ``n, V, lines``). Two steps that
+    share a medium give the same dict object, or equal dicts: equal media
+    become one ``RefractionIndex``, as a scene built from the public
+    classes shares them.
+    """
+    from .trace_core import TraceStep
+    from ..spectrum.refraction_index import RefractionIndex
+
+    media = {}
+
+    def medium(desc):
+        if desc is None:
+            return None
+        key = repr(sorted((k, np.asarray(v).tolist()) for k, v in desc.items()))
+        if key not in media:
+            kw = {k: (list(np.asarray(v).tolist()) if isinstance(v, (np.ndarray, list, tuple))
+                      else v) for k, v in desc.items()}
+            media[key] = RefractionIndex(**kw)
+        return media[key]
+
+    steps = []
+    for d in spec:
+        sfns = surface_fns(d["kind"], d["params"], device, dtype)
+        pos_host = tuple(float(v) for v in d["pos_host"]) if d.get("pos_host") is not None else None
+        hurb_kind = {"ring": "ring", "slit": "slit"}.get(d["kind"], "") \
+            if d["action"] == "absorb" else ""
+        steps.append(TraceStep(sfns, d["action"], n1_fn=medium(d.get("n1")),
+                               n2_fn=medium(d.get("n2")), hurb=bool(hurb_kind),
+                               hurb_kind=hurb_kind, pos_host=pos_host))
+    return steps

@@ -1,0 +1,483 @@
+"""The surface-sequential trace as a pure function of tensors.
+
+Counterpart of ``optrace_tpu/tracer/trace_core.py``: the whole ray bundle
+is one set of tensors on one device, the element loop is a Python loop over
+the static scene structure, and all per-ray branching is masked arithmetic.
+
+Physics per step:
+- vectorial Snell + Fresnel transmission with polarization projection,
+  TIR → absorbed + counted
+- polarization transport in the s/p decomposition
+- aperture absorption
+- outline-box escape absorption
+- "Broken sequentiality" / miss / ill-conditioned bookkeeping (INFOS)
+
+Runs of consecutive conic/flat refractions go to
+:func:`optrace_tpu_torch.ops.cuda_run.conic_run`: the hand-written CUDA
+kernel on a CUDA device, its plain PyTorch version on the CPU, in f64 and
+when a gradient is needed. Ideal lenses, filters and HURB edge diffraction
+are not ported yet and raise ``NotImplementedError``.
+"""
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops import geom
+from ..ops.cuda_run import conic_run, conic_run_reference, RUN_KINDS
+from ..ops.vector import rdot, cross, normalize_safe
+from .scene_compile import SurfaceFns
+
+INV_SQRT2 = 1.0 / np.sqrt(2.0)
+
+# INFOS rows
+ABSORB_MISSING, TIR, ILL_COND, OUTLINE_INTERSECTION, HURB_NEG_DIR = range(5)
+N_INFOS = 5
+
+HURB_FACTOR = np.sqrt(2.0)
+
+
+class TraceStep(NamedTuple):
+    """One light-interacting surface in the unrolled trace."""
+    sfns: SurfaceFns
+    action: str                      # "refract" | "absorb" ("ideal" | "filter": not ported)
+    n1_fn: Optional[Callable] = None  # wl -> n before surface (refract)
+    n2_fn: Optional[Callable] = None  # wl -> n after surface (refract)
+    spectrum_fn: Optional[Callable] = None   # wl -> T (filter)
+    D: float = 0.0                   # optical power in dpt (ideal)
+    hurb: bool = False               # HURB bending at this aperture
+    hurb_kind: str = ""              # "ring" | "slit"
+    pos_host: Optional[tuple] = None  # static f64 vertex position; enables
+    #   per-surface local-frame re-centering (the f32 accuracy anchor: ray
+    #   state is kept relative to the CURRENT surface vertex, so position
+    #   rounding is ~eps*(gap+aperture) instead of eps*|z_absolute| — at
+    #   z=430 mm the difference is 5e-5 vs 1e-6 mm, and cemented doublet
+    #   interfaces 1e-7 mm apart stop absorbing rays spuriously)
+
+
+# ----------------------------------------------------------------------
+# helpers
+
+def _surface_hit(step: TraceStep, p, s, hw):
+    """Hit solve + abnormal clamping + aperture mask for one surface.
+
+    Dead rays (not hw) stay in place. Returns (p_new, hit, ill, n_broken).
+    """
+    params = step.sfns.params
+    # p is already relative to the surface vertex (local frame); recondition
+    # rays whose previous section is far away before solving
+    ps = geom.advance_to_standoff(p, s, params["z_min_rel"], hw)
+    t, valid, ill = step.sfns.hit_fn(params, ps, s)
+    t2, ok, broken = geom.clamp_abnormal(ps, s, t, valid, params["z_max_rel"])
+    p_hit = ps + t2[:, None] * s
+    hit = step.sfns.mask_fn(params, p_hit[:, 0], p_hit[:, 1]) & ok
+    p_new = torch.where(hw[:, None], p_hit, p)
+    hit = hit & hw
+    return p_new, hit, ill & hw, torch.count_nonzero(broken & hw)
+
+
+def _compute_polarization(s, s_, pols, upd, no_pol):
+    """s/p decomposition of polarization across a direction change.
+    Returns (A_ts, A_tp, new_pols)."""
+    if no_pol:
+        return INV_SQRT2, INV_SQRT2, pols
+
+    changed = torch.any(s != s_, dim=-1)
+    ps = normalize_safe(cross(s_, s))
+    pp = cross(ps, s)
+    A_ts = rdot(ps, pols)
+    A_tp = rdot(pp, pols)
+    A_ts = torch.where(changed, A_ts, INV_SQRT2)
+    A_tp = torch.where(changed, A_tp, INV_SQRT2)
+    pp_ = cross(ps, s_)
+    pol_new = ps * A_ts[:, None] + pp_ * A_tp[:, None]
+    m = (upd & changed)[:, None]
+    return A_ts, A_tp, torch.where(m, pol_new, pols)
+
+
+def _outline_intersection(p_prev, p_new, s, w, outline):
+    """Kill rays leaving the outline box; intersect them with the box.
+    Returns (p_out, w_out, count)."""
+    xs, xe, ys, ye, zs, ze = [outline[i] for i in range(6)]
+    x, y, z = p_new[:, 0], p_new[:, 1], p_new[:, 2]
+    inside = (xs < x) & (x < xe) & (ys < y) & (y < ye) & (zs < z) & (z < ze)
+    out = ~inside & (w > 0)
+
+    # smallest positive t to any of the 6 box planes, from the previous section
+    t = torch.full_like(x, float("inf"))
+    for axis, (lo, hi) in enumerate(((xs, xe), (ys, ye), (zs, ze))):
+        pc, sc = p_prev[:, axis], s[:, axis]
+        ok = sc != 0
+        # guard with 1.0 (not a tiny eps): 1/eps² overflows f32 in the backward
+        den = torch.where(ok, sc, 1.0)
+        for bound in (lo, hi):
+            tb = (bound - pc) / den
+            t = torch.where(ok & (tb > 0) & (tb < t), tb, t)
+    t = torch.where(torch.isfinite(t), t, 0.0)
+
+    p_box = p_prev + t[:, None] * s
+    p_out = torch.where(out[:, None], p_box, p_new)
+    w_out = torch.where(out, 0.0, w)
+    return p_out, w_out, torch.count_nonzero(out)
+
+
+def _refract(step: TraceStep, p_new, s, w, wl, pols, hit, no_pol):
+    """Snell + Fresnel at a refracting surface."""
+    params = step.sfns.params
+    n = step.sfns.normal_fn(params, p_new[:, 0], p_new[:, 1])
+    return _refract_core(n, step.n1_fn(wl), step.n2_fn(wl), s, w, pols, hit, no_pol)
+
+
+def _refract_core(n, n1, n2, s, w, pols, hit, no_pol):
+    """Snell + Fresnel given per-ray normals and indices."""
+    ns = rdot(n, s)                      # cos(alpha)
+    # grazing incidence: T → 0 physically, but the f32 evaluation is 0/0
+    # (every factor carries cos(alpha)); take the limit explicitly
+    graze = ns < 1e-6
+    ns_safe = torch.where(graze, 1.0, ns)
+    Nq = n1 / n2
+    W2 = 1.0 - Nq * Nq * (1.0 - ns * ns)
+    tir = W2 < 0.0
+    # grad-safe sqrt: push the argument away from 0 before the sqrt
+    W = torch.sqrt(torch.where(tir, 1.0, W2))
+    W = torch.where(tir, 0.0, W)           # cos(beta)
+    s_ = s * Nq[:, None] - n * (Nq * ns - W)[:, None]
+
+    upd = hit & ~tir
+    A_ts, A_tp, pols_new = _compute_polarization(s, s_, pols, upd, no_pol)
+
+    n1ca = n1 * ns_safe
+    n2cb = n2 * W
+    ts = 2.0 * n1ca / (n1ca + n2cb)
+    tp = 2.0 * n1ca / (n2 * ns_safe + n1 * W)
+    T = n2cb / n1ca * ((A_ts * ts) ** 2 + (A_tp * tp) ** 2)
+    T = torch.where(tir | graze, 0.0, T)
+
+    w_new = torch.where(hit, w * T, w)
+    s_new = torch.where(upd[:, None], s_, s)
+    return s_new, w_new, pols_new, torch.count_nonzero(tir & hit)
+
+
+# ----------------------------------------------------------------------
+# runs: consecutive conic/flat refractions collapse into ONE call of
+# ops.cuda_run.conic_run (one kernel launch on a CUDA device). Heterogeneous
+# steps (apertures, surfaces of a kind the kernel does not hold) and steps
+# consumed by a streaming sink stay unrolled; real systems are dominated by
+# conic runs.
+
+MIN_RUN = 4     # shortest run worth a launch of its own
+
+
+def _normalize_sinks(sinks):
+    """Sink entries are (fn, init) or (fn, init, seg_mask); normalize to
+    triples. ``seg_mask=None`` means the sink may consume ANY segment,
+    which keeps every step unrolled."""
+    if not sinks:
+        return []
+    return [(e[0], e[1], e[2] if len(e) > 2 else None) for e in sinks]
+
+
+def _frame_chain(steps, dtype):
+    """Host-side local-frame origin chain: per step (pos_h f64, applied
+    delta in the trace dtype, applied origin f64). Shared by the unrolled
+    steps and the runs so both apply bit-identical frame shifts.
+    ``dtype`` is a numpy dtype."""
+    prev = np.zeros(3, dtype=np.float64)
+    chain = []
+    for step in steps:
+        pos_h = np.asarray(step.pos_host, dtype=np.float64) \
+            if step.pos_host is not None \
+            else np.asarray(step.sfns.host["pos"], dtype=np.float64)
+        delta = np.asarray(pos_h - prev, dtype=dtype)
+        prev = prev + np.asarray(delta, dtype=np.float64)
+        chain.append((pos_h, delta, prev.copy()))
+    return chain
+
+
+def _run_step(st: TraceStep) -> bool:
+    """THE predicate for what a run may hold: refract steps on a surface
+    kind the run kernel has. Every other step (apertures, and kinds that
+    are not ported yet) stays unrolled — or cannot be built at all."""
+    return st.action == "refract" and st.sfns.kind in RUN_KINDS
+
+
+def _partition_runs(steps, sink_masks):
+    """Split the step list into per-step segments and runs
+    (("step", [i]) / ("run", [i..j]) entries). A step whose segment a sink
+    consumes is never part of a run."""
+    def runnable(i):
+        if not _run_step(steps[i]):
+            return False
+        for m in sink_masks:
+            if m is None or (i < len(m) and m[i]):
+                return False
+        return True
+
+    runs, i = [], 0
+    while i < len(steps):
+        if runnable(i):
+            j = i
+            while j < len(steps) and runnable(j):
+                j += 1
+            idxs = list(range(i, j))
+            if len(idxs) >= MIN_RUN:
+                runs.append(("run", idxs))
+            else:
+                runs.extend(("step", [k]) for k in idxs)
+            i = j
+            continue
+        runs.append(("step", [i]))
+        i += 1
+    return runs
+
+
+def _media_rows(steps, run_idxs):
+    """Unique media (by object identity) across all steps of the runs.
+    Returns (media_fns, pairs) with pairs[step_idx] = (n1_row, n2_row)."""
+    media, rows, pairs = [], {}, {}
+
+    def row(fn):
+        k = id(fn)
+        if k not in rows:
+            rows[k] = len(media)
+            media.append(fn)
+        return rows[k]
+
+    for i in run_idxs:
+        pairs[i] = (row(steps[i].n1_fn), row(steps[i].n2_fn))
+    return media, pairs
+
+
+def _run_needs_plain(steps, idxs, p, s, w, pols, n_tab, no_pol) -> bool:
+    """Whether a run must take the plain PyTorch loop although its tensors
+    may lie on a CUDA device: the kernel holds f32 state and has no
+    backward, so f64 state and every operand or surface parameter that
+    requires a gradient keep the plain loop. ``cuda_trace=False`` selects
+    the plain loop for comparison."""
+    from ..utils.global_options import global_options
+    if not global_options.cuda_trace or p.dtype != torch.float32:
+        return True
+    operands = [p, s, w, n_tab] + ([] if no_pol else [pols])
+    if any(t is not None and t.requires_grad for t in operands):
+        return True
+    return any(v.requires_grad for i in idxs for v in steps[i].sfns.params.values())
+
+
+def _run_steps(steps, idxs, chain, outline64):
+    """The per-step constant dicts of a run (python floats)."""
+    out = []
+    for i in idxs:
+        st = steps[i]
+        h = st.sfns.host
+        pos_h, delta, origin = chain[i]
+        out.append(dict(
+            kind=st.sfns.kind, is_flat=bool(st.sfns.is_flat),
+            rho=float(h.get("rho", 1.0)), k=float(h.get("k", 0.0)),
+            r=float(h.get("r", 1.0)),
+            z_min=float(h.get("z_min_rel", 0.0)), z_max=float(h.get("z_max_rel", 0.0)),
+            dx=float(delta[0]), dy=float(delta[1]), dz=float(delta[2]),
+            ox=float(origin[0]), oy=float(origin[1]), oz=float(origin[2]),
+            out=tuple(float(outline64[q] - origin[q // 2]) for q in range(6))))
+    return out
+
+
+def _run_differentiable_steps(steps, idxs, consts):
+    """For the gradient path: put the surface parameters that require a
+    gradient back into the constant dicts as tensors, so that the plain
+    loop differentiates through them."""
+    for c, i in zip(consts, idxs):
+        pr = steps[i].sfns.params
+        for key, name in (("rho", "rho"), ("k", "k"), ("r", "r"),
+                          ("z_min", "z_min_rel"), ("z_max", "z_max_rel")):
+            if name in pr and pr[name].requires_grad:
+                c[key] = pr[name]
+    return consts
+
+
+def _conic_run_dispatch(steps, idxs, chain, outline64, n_tab, pairs,
+                        p, s, w, pols, no_pol, store_sections):
+    """Build the per-step constants and media row pairs of one run, call
+    the run (kernel or plain loop) and shape its outputs for
+    :func:`trace_bundle`."""
+    consts = _run_steps(steps, idxs, chain, outline64)
+    med_idx = [pairs[i] for i in idxs]
+    pol_in = None if no_pol else pols
+    if _run_needs_plain(steps, idxs, p, s, w, pols, n_tab, no_pol):
+        consts = _run_differentiable_steps(steps, idxs, consts)
+        fn = conic_run_reference
+    else:
+        fn = conic_run
+    (p2, s2, w2, pols2), (counts, ys_p, ys_w, ys_pol) = fn(
+        p, s, w, n_tab, med_idx, consts, pol=pol_in, store=store_sections)
+    if no_pol:
+        pols2 = pols
+
+    # per-step (N_INFOS,) rows from the run's (L, 4) counters
+    run_infos = torch.zeros((len(idxs), N_INFOS), dtype=torch.int32, device=p.device)
+    run_infos[:, ABSORB_MISSING] = counts[:, 0]
+    run_infos[:, TIR] = counts[:, 1]
+    run_infos[:, OUTLINE_INTERSECTION] = counts[:, 2]
+    run_infos[:, ILL_COND] = counts[:, 3]
+    return p2, s2, w2, pols2, run_infos, ys_p, ys_w, ys_pol
+
+
+# ----------------------------------------------------------------------
+# the trace
+
+def trace_bundle(steps: list, n0_fn: Callable, outline,
+                 p, s, pols, w, wl, no_pol: bool,
+                 use_hurb: bool = False, gen=None,
+                 sinks: list = None, store_sections: bool = True,
+                 hurb_factor: float = HURB_FACTOR):
+    """Trace a ray bundle through the step list, on the device of ``p``.
+
+    :param steps: list[TraceStep] including the implicit end absorber
+    :param n0_fn: ambient index wl -> n
+    :param outline: 6-element outline box
+    :param p, s, pols, w, wl: initial ray state from the sources
+    :param gen: ``torch.Generator`` for HURB (not ported yet)
+    :param sinks: optional list of (update_fn, init_carry) or
+        (update_fn, init_carry, seg_mask) streaming consumers. After each
+        step, ``carry = update_fn(j, p_prev, p_new, w_prev, carry)`` is
+        called with the segment index j (= step index) and the ray weight
+        *at the segment start*. This is how the fused render observes
+        detector crossings without section storage. ``seg_mask`` is the
+        sink's static per-segment relevance list; steps whose segment no
+        sink consumes are eligible for a run.
+    :param store_sections: when False, per-section arrays are not
+        accumulated — the returned dict carries only the final ray state,
+        wl, INFOS and the sink carries, keeping device memory at O(N)
+        regardless of surface count (the megabatch render path).
+    :return: dict with stacked per-section arrays p (N, nt, 3), w (N, nt),
+             pol (N, nt, 3) or None, n (N, nt) (if store_sections) and the
+             INFOS counter matrix (N_INFOS, nt) — nt = len(steps) + 1
+             sections — plus "sinks": final sink carries.
+    """
+    for st in steps:
+        if st.action in ("ideal", "filter"):
+            raise NotImplementedError(
+                f"'{st.action}' steps are not ported yet (ROADMAP: ideal/filter/HURB steps)")
+        if st.action not in ("refract", "absorb"):
+            raise RuntimeError(f"unknown action {st.action}")
+    if use_hurb and any(st.hurb for st in steps):
+        raise NotImplementedError(
+            "HURB edge diffraction is not ported yet (ROADMAP: ideal/filter/HURB steps)")
+
+    dev = p.device
+    np_dtype = np.float64 if p.dtype == torch.float64 else np.float32
+    sections_p = [p]
+    sections_w = [w]
+    sections_pol = [pols]
+    sections_n = [n0_fn(wl)]
+    infos = [torch.zeros((N_INFOS,), dtype=torch.int32, device=dev)]
+    sink_list = _normalize_sinks(sinks)
+    carries = [init for _, init, _ in sink_list]
+    outline64 = np.asarray(outline, dtype=np.float64)
+    # local-frame re-centering chain: shift the ray state into the frame
+    # of each surface's vertex, tracking the APPLIED cumulative origin so
+    # f32 position rounding stays O(eps·(gap+aperture)) instead of
+    # O(eps·|z_absolute|) — see TraceStep.pos_host
+    chain = _frame_chain(steps, np_dtype)
+    runs = _partition_runs(steps, [m for _, _, m in sink_list])
+
+    # shared media table for the runs: one (M, N) row per unique medium
+    run_idxs_all = [i for kind, idxs in runs if kind == "run" for i in idxs]
+    n_tab = None
+    if run_idxs_all:
+        media, pairs = _media_rows(steps, run_idxs_all)
+        n_tab = torch.stack([m(wl) for m in media])
+
+    n_amb_last = sections_n[-1]
+    for run_kind, run_idxs in runs:
+        if run_kind == "run":
+            (p, s, w, pols, run_infos, run_p, run_w,
+             run_pol) = _conic_run_dispatch(
+                steps, run_idxs, chain, outline64, n_tab, pairs,
+                p, s, w, pols, no_pol, store_sections)
+            L = len(run_idxs)
+            infos.extend(run_infos[i] for i in range(L))
+            if store_sections:
+                sections_p.extend(run_p[i] for i in range(L))
+                sections_w.extend(run_w[i] for i in range(L))
+                if no_pol:      # pol untouched: reuse the source tensor
+                    sections_pol.extend([pols] * L)
+                else:
+                    sections_pol.extend(run_pol[i] for i in range(L))
+                sections_n.extend(n_tab[pairs[i][1]] for i in run_idxs)
+            n_amb_last = n_tab[pairs[run_idxs[-1]][1]]
+            continue
+
+        idx = run_idxs[0]
+        step = steps[idx]
+        info = torch.zeros((N_INFOS,), dtype=torch.int32, device=dev)
+        hw = w > 0.0
+
+        pos_h, delta_applied, origin = chain[idx]
+        if np.any(delta_applied):
+            p = p - torch.as_tensor(delta_applied, dtype=p.dtype, device=dev)
+        # residual between the parameter tensor and the static position
+        # (exactly 0 in the forward pass): keeps d(image)/d(surface
+        # position) flowing although the frame shift itself is a constant
+        if step.sfns.params["pos"].requires_grad:
+            p = p - (step.sfns.params["pos"]
+                     - torch.as_tensor(pos_h, dtype=p.dtype, device=dev))
+        out_rel = tuple(float(outline64[i] - origin[i // 2]) for i in range(6))
+
+        p_prev = p
+        w_prev = w
+
+        p, hit, ill, _ = _surface_hit(step, p, s, hw)
+        info[ILL_COND] += torch.count_nonzero(ill)
+
+        if step.action == "refract":
+            # rays missing the surface are absorbed; the clamped position
+            # stays
+            miss = hw & ~hit
+            w = torch.where(miss, 0.0, w)
+            info[ABSORB_MISSING] += torch.count_nonzero(miss)
+            s, w, pols, n_tir = _refract(step, p, s, w, wl, pols, hit, no_pol)
+            info[TIR] += n_tir
+            n_after = step.n2_fn(wl)
+        else:   # absorb
+            w = torch.where(hit, 0.0, w)
+            n_after = n_amb_last
+
+        p, w, n_out = _outline_intersection(p_prev, p, s, w, out_rel)
+        info[OUTLINE_INTERSECTION] += n_out
+
+        if sink_list or store_sections:
+            # sections and sinks see absolute coordinates (single rounding
+            # at output, does not feed back into the trace state); rebase
+            # from the APPLIED origin, the frame p actually lives in
+            off = torch.as_tensor(origin, dtype=p.dtype, device=dev)
+            p_abs = p + off
+            if sink_list:
+                p_prev_abs = p_prev + off
+                carries = [fn(idx, p_prev_abs, p_abs, w_prev, c)
+                           for (fn, _, _), c in zip(sink_list, carries)]
+
+        n_amb_last = n_after
+        infos.append(info)
+        if store_sections:
+            sections_p.append(p_abs)
+            sections_w.append(w)
+            sections_pol.append(pols)
+            sections_n.append(n_after)
+
+    out = {
+        "wl": wl,
+        "infos": torch.stack(infos, dim=1),   # (N_INFOS, nt)
+        "sinks": carries,
+        "state": (p, s, pols, w),
+    }
+    if store_sections:
+        out |= {
+            "p": torch.stack(sections_p, dim=1),
+            "w": torch.stack(sections_w, dim=1),
+            # under no_pol the polarization is never touched: skip the
+            # (N, nt, 3) NaN stack entirely (RayStorage broadcasts host-side)
+            "pol": None if no_pol else torch.stack(sections_pol, dim=1),
+            "n": torch.stack(sections_n, dim=1),
+        }
+    return out
