@@ -6,9 +6,12 @@
 Builds the CUDA kernels from optrace_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card, renders the double-Gauss
 objective (Nikkor-Wakamiya 100 mm f/1.4) with the fused streaming render at
-10⁶ rays a batch into a 945 × 945 × 4 image, runs the stored trace, and
-checks that both went through the kernels (launch counters). Every phase
-prints one JSON line; the last line is
+10⁶ rays a batch into a 945 × 945 × 4 image, runs the stored trace, traces
+an asphere stack and carries its stored trace through ``detector_image`` to
+an sRGB image, drives the planar step kinds (tilted plate, ring, rectangle,
+slit) in one run, measures the render with ``cuda_fuse_planar`` off and on,
+probes the single-step kernel, and checks that every path went through its
+kernels (launch counters). Every phase prints one JSON line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure exits with a non-zero code. Without a CUDA device the script
 fails at once: nothing here runs on the CPU.
@@ -22,11 +25,25 @@ import time
 
 N_RAYS = 10 ** 6
 NX = NY = 945
-N_BATCHES = 4
+N_BATCHES = 2
+N_BATCHES_FLAG = 8              # batches of each leg of the cuda_fuse_planar measurement
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12           # H100 SXM f32 peak outside the tensor cores
-RUN_OPS_PER_RAY_STEP = 150      # f32 operations of one refract step
+# f32 operations of one step for one ray that is alive when it reaches it, by
+# what the step makes the kernel do (ops/cuda_run.py:step_tag). A flat, conic
+# or tilted refraction: hit solve, clamp, normal, Snell and Fresnel, outline
+# test. An asphere: the same around a bracketed solve of 42 evaluations of the
+# sag (about 22 operations each with two coefficients) and 40 bracket updates
+# (about 15 each). An absorber: advance, plane hit, clamp, mask, outline test.
+RUN_OPS_PER_RAY_STEP = {"conic": 150, "flat": 150, "tilted": 150,
+                        "asphere": 150 + 42 * 22 + 40 * 15,
+                        "absorb:circle": 60, "absorb:ring": 60, "absorb:rect": 60,
+                        "absorb:slit": 60}
+STEP_OPS_PER_RAY = 150          # the single-step kernel: one conic refraction
 BIN_OPS_PER_RAY = 30
+# the run-to-run spread of the host-bound render (PERF.md §5: 8.8–19.6 ms a
+# batch across calls); within one call the legs off/on/on/off show their own
+FLAG_MIN_GAIN = 0.10            # a default changes only for a gain beyond this share
 CPU_REFERENCE_MS_PER_SURFACE_MRAY = 85.0    # the NumPy reference package on a CPU (BASELINE.md)
 
 # kernel against plain version on the card, same inputs. Without FMA
@@ -72,20 +89,93 @@ def double_gauss_scene(ot, no_pol):
     return RT
 
 
-def synthetic_stack_scene(ot, no_pol):
-    """28 spherical lenses (56 refracting surfaces in one run) and a ring
-    aperture, with dispersive glasses."""
-    RT = ot.Raytracer(outline=[-50, 50, -50, 50, -5, 600], no_pol=no_pol)
+def _stack_source(ot, RT):
     RT.add(ot.RaySource(ot.CircularSurface(r=3), divergence="Lambertian", div_angle=3,
                         pos=[0, 0, 0], s=[0, 0, 1], spectrum=ot.presets.light_spectrum.d65))
-    z = 10.0
+
+
+def _stack_lenses(ot, RT, z, count, start=0):
+    """``count`` lenses of the 28-lens spherical stack from z on; returns the next z."""
     glasses = [ot.presets.refraction_index.BK7, ot.presets.refraction_index.F2]
-    for i in range(28):
+    for i in range(start, start + count):
         front = ot.SphericalSurface(r=8, R=60.0 if i % 2 == 0 else 80.0)
         back = ot.SphericalSurface(r=8, R=-70.0 if i % 2 == 0 else -90.0)
         RT.add(ot.Lens(front, back, n=glasses[i % 2], de=0.5, pos=[0, 0, z]))
         z += 15.0
+    return z
+
+
+def synthetic_stack_scene(ot, no_pol):
+    """28 spherical lenses (56 refracting surfaces in one run) and a ring
+    aperture, with dispersive glasses."""
+    RT = ot.Raytracer(outline=[-50, 50, -50, 50, -5, 600], no_pol=no_pol)
+    _stack_source(ot, RT)
+    z = _stack_lenses(ot, RT, 10.0, 28)
     RT.add(ot.Aperture(ot.RingSurface(r=9, ri=6), pos=[0, 0, z]))
+    return RT
+
+
+def asphere_scene(ot, no_pol):
+    """The asphere stack of bench.py:build_asphere_scene (10 lenses with
+    even-asphere fronts, 20 refracting surfaces in one run) and a detector
+    behind the last lens."""
+    RT = ot.Raytracer(outline=[-50, 50, -50, 50, -5, 320], no_pol=no_pol)
+    RT.add(ot.RaySource(ot.CircularSurface(r=4), divergence="Lambertian", pos=[0, 0, 0],
+                        s=[0, 0, 1], div_angle=8, spectrum=ot.presets.light_spectrum.d65))
+    glasses = [ot.presets.refraction_index.BK7, ot.presets.refraction_index.F2]
+    z = 10.0
+    for i in range(10):
+        front = ot.AsphericSurface(r=8, R=60.0 if i % 2 == 0 else 80.0, k=-0.8, coeff=[1e-5, -1e-8])
+        back = ot.SphericalSurface(r=8, R=-70.0 if i % 2 == 0 else -90.0)
+        RT.add(ot.Lens(front, back, n=glasses[i % 2], de=0.5, pos=[0, 0, z]))
+        z += 15.0
+    RT.add(ot.Detector(ot.RectangularSurface(dim=[30, 30]), pos=[0, 0, 200]))
+    return RT
+
+
+def planar_stack_scene(ot, no_pol):
+    """The 28-lens stack in groups of 6, 6, 6, 5 and 5 lenses with a tilted
+    plate (8°), a ring stop, a rectangular stop and a rotated slit between
+    the groups, and a detector behind the last lens: with
+    ``cuda_fuse_planar`` one run of 61 steps."""
+    import numpy as np
+    RT = ot.Raytracer(outline=[-50, 50, -50, 50, -5, 600], no_pol=no_pol)
+    _stack_source(ot, RT)
+    th = np.radians(8.0)
+    z = _stack_lenses(ot, RT, 10.0, 6)
+    RT.add(ot.Lens(ot.TiltedSurface(r=8, normal=[0.0, float(np.sin(th)), float(np.cos(th))]),
+                   ot.TiltedSurface(r=8, normal=[0.0, 0.0, 1.0]),
+                   n=ot.presets.refraction_index.F2, pos=[0, 0, z], d=2.0))
+    z = _stack_lenses(ot, RT, z + 15.0, 6, start=6)
+    RT.add(ot.Aperture(ot.RingSurface(r=9, ri=2.5), pos=[0, 0, z - 5.0]))
+    z = _stack_lenses(ot, RT, z + 5.0, 6, start=12)
+    RT.add(ot.Aperture(ot.RectangularSurface(dim=[1.0, 1.0]), pos=[0.5, 1.0, z - 5.0]))
+    z = _stack_lenses(ot, RT, z + 5.0, 5, start=18)
+    slit = ot.SlitSurface(dim=[18, 18], dimi=[7.0, 5.0])
+    slit.rotate(20)
+    RT.add(ot.Aperture(slit, pos=[0, 0, z - 5.0]))
+    z = _stack_lenses(ot, RT, z + 5.0, 5, start=23)
+    RT.add(ot.Detector(ot.RectangularSurface(dim=[30, 30]), pos=[0, 0, z + 20.0]))
+    return RT
+
+
+def asphere_tilted_scene(ot, no_pol):
+    """Two asphere lenses, a tilted plate and two more lenses: the aspheres
+    join a run whatever ``cuda_fuse_planar`` says, the plate only with it."""
+    import numpy as np
+    RT = ot.Raytracer(outline=[-50, 50, -50, 50, -5, 200], no_pol=no_pol)
+    _stack_source(ot, RT)
+    glasses = [ot.presets.refraction_index.BK7, ot.presets.refraction_index.F2]
+    z = 10.0
+    for i in range(2):
+        RT.add(ot.Lens(ot.AsphericSurface(r=8, R=60.0, k=-0.8, coeff=[1e-5, -1e-8]),
+                       ot.SphericalSurface(r=8, R=-70.0), n=glasses[i], de=0.5, pos=[0, 0, z]))
+        z += 15.0
+    th = np.radians(8.0)
+    RT.add(ot.Lens(ot.TiltedSurface(r=8, normal=[0.0, float(np.sin(th)), float(np.cos(th))]),
+                   ot.TiltedSurface(r=8, normal=[0.0, 0.0, 1.0]),
+                   n=glasses[1], pos=[0, 0, z], d=2.0))
+    _stack_lenses(ot, RT, z + 15.0, 2)
     return RT
 
 
@@ -122,75 +212,108 @@ def capture_run_calls(RT, N, store, seed):
     return calls
 
 
-def check_run_calls(calls, label):
-    """Kernel against plain version on the recorded calls: errors, counts,
-    hit/miss flips, times and the bound. Raises on disagreement."""
+def compare_run(c, label):
+    """Kernel and plain version on one recorded call: errors, flips and
+    counts. Raises on disagreement. Returns the comparison and the plain
+    version's stored weights (None for a call that stores nothing)."""
     import torch
     from optrace_tpu_torch.ops.cuda_run import conic_run, conic_run_reference
 
+    args = (c["p"], c["s"], c["w"], c["n_tab"], c["med_idx"], c["steps"])
+    kw = dict(pol=c["pol"], store=c["store"])
+    (pk, sk, wk, qk), (ck, ypk, ywk, yqk) = conic_run(*args, **kw)
+    (pr, sr, wr, qr), (cr, ypr, ywr, yqr) = conic_run_reference(*args, **kw)
+    torch.cuda.synchronize()
+
+    flipped = (wk > 0) != (wr > 0)
+    if c["store"]:
+        flipped = flipped | torch.any((ywk > 0) != (ywr > 0), dim=0)
+    keep = ~flipped
+
+    def err(a, b):
+        d = (a[keep] - b[keep]).abs()
+        return float(d.max()) if d.numel() else 0.0
+
+    def rel_w(a, b, m):
+        d = ((a - b).abs() / b.abs().clamp(min=1e-30))[m]
+        return float(d.max()) if d.numel() else 0.0
+
+    e_state = max(err(pk, pr), err(sk, sr))
+    e_w = rel_w(wk, wr, keep & (wr > 0))
+    e_pol = err(qk, qr) if qk is not None else 0.0
+    e_sec = 0.0
+    if c["store"]:
+        e_sec = max(err(ypk.transpose(0, 1), ypr.transpose(0, 1)),
+                    err(yqk.transpose(0, 1), yqr.transpose(0, 1)) if yqk is not None else 0.0)
+        e_w = max(e_w, rel_w(ywk, ywr, (ywr > 0) & keep[None, :]))
+    flips = int(flipped.sum())
+    d_counts = int((ck - cr).abs().sum())
+    assert d_counts <= 2 * flips, f"{label}: counts [miss, tir, outline, ill] differ by {d_counts}"
+    assert max(e_state, e_sec) <= TOL_P, f"{label}: position/direction error {e_state} {e_sec}"
+    assert e_w <= TOL_W_REL, f"{label}: weight error {e_w}"
+    assert e_pol <= TOL_POL, f"{label}: polarization error {e_pol}"
+    assert torch.isfinite(pk).all() and torch.isfinite(wk).all()
+    return dict(flips=flips, e_state=e_state, e_w=e_w, e_pol=e_pol, e_sec=e_sec,
+                counts_equal=d_counts == 0, counts=ck.sum(dim=0).tolist()), ywr
+
+
+def check_run_calls(calls, label, plain_reps=3):
+    """Kernel against plain version on the recorded calls: errors, counts,
+    hit/miss flips, times and the bound, which is reckoned step by step
+    from the kinds in the recorded step list and from the rays that are
+    alive when they reach each step. ``ms`` is the kernel's device time by
+    the profiler; ``ms_between_events`` times one launch between two CUDA
+    events and holds the host's gap before the launch too. Raises on
+    disagreement."""
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run, conic_run_reference, step_tag
+
     res = dict(name=label, N=int(calls[0]["p"].shape[0]), steps=[len(c["steps"]) for c in calls],
-               media_rows_read=[len({r for pair in c["med_idx"] for r in pair}) for c in calls],
-               max_abs_err=0.0, max_abs_err_sections=0.0, max_rel_err_w=0.0, flips=0,
-               counts_equal=True, ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0, ray_steps_alive=0)
+               step_kinds={}, media_rows_read=[], max_abs_err=0.0, max_abs_err_sections=0.0,
+               max_rel_err_w=0.0, flips=0, counts_equal=True, counts=[0, 0, 0, 0],
+               ms=0.0, ms_between_events=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0,
+               ray_steps_alive=0, operations=0)
     bound_bytes_ms = bound_ops_ms = 0.0
     for c in calls:
         args = (c["p"], c["s"], c["w"], c["n_tab"], c["med_idx"], c["steps"])
         kw = dict(pol=c["pol"], store=c["store"])
-        (pk, sk, wk, qk), (ck, ypk, ywk, yqk) = conic_run(*args, **kw)
-        (pr, sr, wr, qr), (cr, ypr, ywr, yqr) = conic_run_reference(*args, **kw)
-        torch.cuda.synchronize()
-        N, L = pk.shape[0], len(c["steps"])
-        M = len({r for pair in c["med_idx"] for r in pair})     # media rows this call reads
+        cmp_, ywr = compare_run(c, label)
+        N, L = c["p"].shape[0], len(c["steps"])
+        tags = [step_tag(x) for x in c["steps"]]
+        # media rows this call reads: an absorb step reads none
+        M = len({r for pair, t in zip(c["med_idx"], tags) if not t.startswith("absorb") for r in pair})
+        res["media_rows_read"].append(M)
+        for t in tags:
+            res["step_kinds"][t] = res["step_kinds"].get(t, 0) + 1
+        res["flips"] += cmp_["flips"]
+        res["max_abs_err"] = max(res["max_abs_err"], cmp_["e_state"], cmp_["e_pol"])
+        res["max_abs_err_sections"] = max(res["max_abs_err_sections"], cmp_["e_sec"])
+        res["max_rel_err_w"] = max(res["max_rel_err_w"], cmp_["e_w"])
+        res["counts_equal"] = res["counts_equal"] and cmp_["counts_equal"]
+        res["counts"] = [a + b for a, b in zip(res["counts"], cmp_["counts"])]
 
-        flipped = (wk > 0) != (wr > 0)
-        if c["store"]:
-            flipped = flipped | torch.any((ywk > 0) != (ywr > 0), dim=0)
-        keep = ~flipped
-        res["flips"] += int(flipped.sum())
-
-        def err(a, b):
-            d = (a[keep] - b[keep]).abs()
-            return float(d.max()) if d.numel() else 0.0
-
-        e_state = max(err(pk, pr), err(sk, sr))
-        e_w = float(((wk - wr).abs() / wr.abs().clamp(min=1e-30))[keep & (wr > 0)].max())
-        e_pol = err(qk, qr) if qk is not None else 0.0
-        e_sec = 0.0
-        if c["store"]:
-            e_sec = max(err(ypk.transpose(0, 1), ypr.transpose(0, 1)),
-                        err(yqk.transpose(0, 1), yqr.transpose(0, 1)) if yqk is not None else 0.0)
-            e_w = max(e_w, float(((ywk - ywr).abs() / ywr.abs().clamp(min=1e-30))
-                                 [(ywr > 0) & keep[None, :]].max()))
-        res["max_abs_err"] = max(res["max_abs_err"], e_state, e_pol)
-        res["max_abs_err_sections"] = max(res["max_abs_err_sections"], e_sec)
-        res["max_rel_err_w"] = max(res["max_rel_err_w"], e_w)
-        d_counts = int((ck - cr).abs().sum())
-        res["counts_equal"] = res["counts_equal"] and d_counts == 0
-        assert d_counts <= 2 * int(flipped.sum()), f"{label}: counts differ by {d_counts}"
-        assert max(e_state, e_sec) <= TOL_P, f"{label}: position/direction error {e_state} {e_sec}"
-        assert e_w <= TOL_W_REL, f"{label}: weight error {e_w}"
-        assert e_pol <= TOL_POL, f"{label}: polarization error {e_pol}"
-        assert torch.isfinite(pk).all() and torch.isfinite(wk).all()
-
-        res["ms"] += cuda_ms(lambda: conic_run(*args, **kw))
-        res["plain_ms"] += cuda_ms(lambda: conic_run_reference(*args, **kw), reps=5, warmup=1)
+        res["ms"] += device_kernel_ms(lambda: conic_run(*args, **kw), "conic_run_kernel")
+        res["ms_between_events"] += cuda_ms(lambda: conic_run(*args, **kw))
+        res["plain_ms"] += cuda_ms(lambda: conic_run_reference(*args, **kw), reps=plain_reps,
+                                   warmup=1 if plain_reps > 1 else 0)
 
         # bound: each input read once, each output written once; operations
-        # for the ray-steps that were alive in this run's data
+        # by step kind for the rays alive when they reach the step
         with_pol = c["pol"] is not None
         state_b = 28 + (12 if with_pol else 0)
         nbytes = N * (2 * state_b + 4 * M) + L * 16
         if c["store"]:
             nbytes += N * L * (28 if with_pol else 16)
-        alive = int((ywr > 0).sum()) + N if c["store"] else None
-        if alive is None:   # count with a stored plain run
-            _, (_, _, yw_tmp, _) = conic_run_reference(*args, pol=c["pol"], store=True)
-            alive = int((yw_tmp > 0).sum()) + N
-            del yw_tmp
+        if ywr is None:     # count with a stored plain run
+            _, (_, _, ywr, _) = conic_run_reference(*args, pol=c["pol"], store=True)
+        alive = [int((c["w"] > 0).sum())] + [int(v) for v in (ywr[:-1] > 0).sum(dim=1).tolist()]
+        del ywr
+        ops = sum(a * RUN_OPS_PER_RAY_STEP[t] for a, t in zip(alive, tags))
         res["bytes"] += nbytes
-        res["ray_steps_alive"] += alive
+        res["ray_steps_alive"] += sum(alive)
+        res["operations"] += ops
         bound_bytes_ms += nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops_ms += alive * RUN_OPS_PER_RAY_STEP / F32_OPS_PER_S * 1e3
+        bound_ops_ms += ops / F32_OPS_PER_S * 1e3
     assert res["flips"] <= FLIPS_PER_MRAY * res["N"] / 1e6 * len(calls), f"{label}: {res['flips']} flips"
     res["bound_ms"] = max(bound_bytes_ms, bound_ops_ms)
     res["bound_by"] = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
@@ -199,7 +322,25 @@ def check_run_calls(calls, label):
     return res
 
 
-def check_binning(px, py, w, wl, extent, label):
+def stress_run_call(c, label, spread, tilt, seed):
+    """The recorded call with its rays spread out and tilted, so that rays
+    miss apertures, leave z-ranges and give brackets without a sign change:
+    kernel against plain version, all four counters."""
+    import torch
+    g = torch.Generator(device=c["p"].device)
+    g.manual_seed(seed)
+    p = c["p"].clone()
+    p[:, :2] = p[:, :2] * spread
+    s = c["s"].clone()
+    s[:, :2] = s[:, :2] + tilt * (torch.rand(s[:, :2].shape, generator=g, device=s.device) * 2 - 1)
+    s = s / torch.linalg.norm(s, dim=-1, keepdim=True)
+    cmp_, _ = compare_run(dict(c, p=p, s=s), label)
+    return dict(name=label, flips=cmp_["flips"], counts_equal=cmp_["counts_equal"],
+                counts_miss_tir_outline_ill=cmp_["counts"],
+                max_abs_err=max(cmp_["e_state"], cmp_["e_sec"], cmp_["e_pol"]))
+
+
+def check_binning(px, py, w, wl, extent, label, Nx=NX, Ny=NY):
     """Binning kernel against its plain version and the library yardstick
     (one index_add_ on precomputed keys and values)."""
     import torch
@@ -207,8 +348,8 @@ def check_binning(px, py, w, wl, extent, label):
     from optrace_tpu_torch.ops.binning import binning_indices_2d
     from optrace_tpu_torch.color.observers import x_observer, y_observer, z_observer
 
-    img_k = bin_xyzw_cuda(px, py, w, wl, NX, NY, extent)
-    img_r = bin_xyzw_reference(px, py, w, wl, NX, NY, extent)
+    img_k = bin_xyzw_cuda(px, py, w, wl, Nx, Ny, extent)
+    img_r = bin_xyzw_reference(px, py, w, wl, Nx, Ny, extent)
     torch.cuda.synchronize()
     err = float((img_k - img_r).abs().max())
     scale = float(img_r.abs().max())
@@ -216,12 +357,12 @@ def check_binning(px, py, w, wl, extent, label):
     # carries an f32 accumulation error that grows with n (the image of a
     # point puts 10⁵–10⁶ rays into one pixel), in the plain version too
     # (same f32 keys and values, so that no ray changes its pixel)
-    xi, yi, wm = binning_indices_2d(px, py, w, NX, NY, extent)
-    keys = yi * NX + xi
+    xi, yi, wm = binning_indices_2d(px, py, w, Nx, Ny, extent)
+    keys = yi * Nx + xi
     vals = torch.stack([x_observer(wl) * wm, y_observer(wl) * wm, z_observer(wl) * wm, wm], dim=-1)
-    img_64 = torch.zeros((NY * NX, 4), dtype=torch.float64, device=px.device)
+    img_64 = torch.zeros((Ny * Nx, 4), dtype=torch.float64, device=px.device)
     img_64.index_add_(0, keys, vals.double())
-    img_64 = img_64.view(NY, NX, 4)
+    img_64 = img_64.view(Ny, Nx, 4)
     err_k64 = float((img_k.double() - img_64).abs().max())
     err_r64 = float((img_r.double() - img_64).abs().max())
     rays_in_a_pixel = int(torch.bincount(keys[wm != 0]).max())
@@ -233,45 +374,143 @@ def check_binning(px, py, w, wl, extent, label):
     assert err_k64 <= tol, f"{label}: binning error {err_k64} against f64 sums (limit {tol})"
     assert err_r64 <= tol_plain, f"{label}: plain version {err_r64} off the f64 sums (limit {tol_plain})"
     assert err <= tol_plain, f"{label}: binning error {err} against the plain version (limit {tol_plain})"
-    ms = cuda_ms(lambda: bin_xyzw_cuda(px, py, w, wl, NX, NY, extent))
-    plain_ms = cuda_ms(lambda: bin_xyzw_reference(px, py, w, wl, NX, NY, extent))
+    ms = device_kernel_ms(lambda: bin_xyzw_cuda(px, py, w, wl, Nx, Ny, extent), "bin_xyzw_kernel")
+    ms_events = cuda_ms(lambda: bin_xyzw_cuda(px, py, w, wl, Nx, Ny, extent))
+    plain_ms = cuda_ms(lambda: bin_xyzw_reference(px, py, w, wl, Nx, Ny, extent))
 
-    out = torch.zeros((NY * NX, 4), dtype=torch.float32, device=px.device)
+    out = torch.zeros((Ny * Nx, 4), dtype=torch.float32, device=px.device)
     library_ms = cuda_ms(lambda: out.index_add_(0, keys, vals))
 
     N = px.shape[0]
-    nbytes = 16 * N + 16 * NX * NY
+    nbytes = 16 * N + 16 * Nx * Ny
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = N * BIN_OPS_PER_RAY / F32_OPS_PER_S * 1e3
-    return dict(name=label, N=N, image=[NY, NX, 4], max_abs_err=err, image_max=scale,
+    return dict(name=label, N=N, image=[Ny, Nx, 4], max_abs_err=err, image_max=scale,
                 max_abs_err_vs_f64=err_k64, plain_max_abs_err_vs_f64=err_r64,
                 rays_in_fullest_pixel=rays_in_a_pixel, tolerance=tol, tolerance_plain=tol_plain,
-                rays_binned=int((wm != 0).sum()), ms=ms,
+                rays_binned=int((wm != 0).sum()), ms=ms, ms_between_events=ms_events,
                 plain_ms=plain_ms, library_ms=library_ms,
                 bytes=nbytes, bound_ms=max(bound_bytes_ms, bound_ops_ms),
                 bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations")
 
 
-def capture_bin_call(ot, RT, seed):
-    """The inputs that one batch of the fused render hands to the binning."""
+class BinRecorder:
+    """Records the inputs of every call that ``module`` makes to the binning
+    kernel's wrapper while the ``with`` block runs."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+
+    def __enter__(self):
+        self.real = self.module.bin_xyzw_cuda
+
+        def recorder(px, py, w, wl, Nx, Ny, extent, out=None):
+            self.calls.append((px, py, w, wl, Nx, Ny, extent))
+            return self.real(px, py, w, wl, Nx, Ny, extent, out=out)
+        self.module.bin_xyzw_cuda = recorder
+        return self
+
+    def __exit__(self, *exc):
+        self.module.bin_xyzw_cuda = self.real
+
+
+def check_conic_step():
+    """The single-step kernel on the probe's inputs (bench.py:_bench_trace_step:
+    N = 10⁶ rays from numpy's default_rng(0), rho = 1/20, k = −0.5, z-range
+    0 … 0.3, aperture 3, n 1.0 → 1.52): 10 chained calls with the weights
+    revived to 1e-3 between them, kernel against plain version after each."""
+    import numpy as np
     import torch
-    from optrace_tpu_torch.parallel import render as render_mod
+    from optrace_tpu_torch.ops.cuda_trace import conic_step, conic_step_reference
 
-    calls = []
-    real = render_mod.bin_xyzw_cuda
+    N = N_RAYS
+    rng = np.random.default_rng(0)
+    p = np.column_stack([rng.uniform(-2, 2, (N, 2)), np.full(N, -5.0)]).astype(np.float32)
+    s = rng.normal(0, 0.05, (N, 3)).astype(np.float32)
+    s[:, 2] = 1.0
+    s /= np.linalg.norm(s, axis=1, keepdims=True)
+    w = rng.uniform(0.5, 1, N).astype(np.float32)
+    p, s, w = (torch.from_numpy(a).cuda() for a in (p, s, w))
+    n1 = torch.full((N,), 1.0, device="cuda")
+    n2 = torch.full((N,), 1.52, device="cuda")
+    kw = dict(rho=1 / 20.0, k=-0.5, z_min_rel=0.0, z_max_rel=0.3, r_ap=3.0)
 
-    def recorder(px, py, w, wl, Nx, Ny, extent, out=None):
-        calls.append((px, py, w, wl, extent))
-        return real(px, py, w, wl, Nx, Ny, extent, out=out)
+    before = conic_step.launches
+    err, flips, alive = 0.0, 0, 0
+    sk, sr = (p, s, w), (p, s, w)
+    for _ in range(10):
+        alive += N          # every ray is revived before the call
+        sk = conic_step(sk[0], sk[1], torch.clamp(sk[2], min=1e-3), n1, n2, **kw)
+        sr = conic_step_reference(sr[0], sr[1], torch.clamp(sr[2], min=1e-3), n1, n2, **kw)
+        torch.cuda.synchronize()
+        # per ray, the largest difference of any component; a ray beyond the
+        # tolerance hit in one version and missed in the other
+        d = torch.cat([(sk[0] - sr[0]).abs(), (sk[1] - sr[1]).abs(),
+                       (sk[2] - sr[2]).abs()[:, None]], dim=-1).amax(dim=-1)
+        flipped = d > TOL_P
+        flips += int(flipped.sum())
+        err = max(err, float(d[~flipped].max()))
+        assert all(bool(torch.isfinite(t).all()) for t in sk)
+    assert conic_step.launches == before + 10
+    assert flips <= FLIPS_PER_MRAY * N / 1e6, f"conic_step: {flips} flipped rays"
+    # the weights after the first step: transmission of an air-glass surface
+    w1 = conic_step(p, s, w, n1, n2, **kw)[2]
+    ratio = float((w1 / w).mean())
+    assert 0.90 < ratio < 0.97, ratio
+    launches_probe = conic_step.launches - before - 1
+    ms = device_kernel_ms(lambda: conic_step(p, s, w, n1, n2, **kw), "conic_step_kernel", calls=20)
+    ms_events = cuda_ms(lambda: conic_step(p, s, w, n1, n2, **kw), reps=20, warmup=2)
+    plain_ms = cuda_ms(lambda: conic_step_reference(p, s, w, n1, n2, **kw))
+    nbytes = 64 * N
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = alive / 10 * STEP_OPS_PER_RAY / F32_OPS_PER_S * 1e3
+    return dict(name="conic_step", N=N, calls=10, max_abs_err=err, flips=flips,
+                mean_transmission=ratio, launches=launches_probe, ms=ms,
+                ms_between_events=ms_events, plain_ms=plain_ms,
+                bytes=nbytes, bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+                bound_bytes_ms=bound_bytes_ms, bound_ops_ms=bound_ops_ms, library_ms=None)
 
-    render_mod.bin_xyzw_cuda = recorder
-    try:
-        render, _ = ot.make_fused_render(RT, N_RAYS, Nx=NX, Ny=NY)
-        with torch.no_grad():
-            render(ot.make_generator(seed))
-    finally:
-        render_mod.bin_xyzw_cuda = real
-    return calls[0]
+
+def device_kernel_ms(fn, name, calls=10):
+    """Device time in ms of one launch of the kernels whose name holds
+    ``name``, by torch.profiler over ``calls`` calls of fn(): the kernel
+    alone, without the host's gap before its launch."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and name in ev.key:
+            us += ev.self_device_time_total
+            n += ev.count
+    assert n > 0, f"the profiler recorded no kernel named {name}"
+    return us / 1e3 / n
+
+
+def device_launches(fn):
+    """Kernel launches on the device during fn(), counted by torch.profiler."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    from torch.autograd import DeviceType
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    assert n > 0, "the profiler recorded no kernel on the device"
+    return int(n)
+
+
+def run_partition(ot, RT, sink_masks=()):
+    from optrace_tpu_torch.tracer.trace_core import _partition_runs
+    return [len(i) for k, i in _partition_runs(RT._build_steps(), list(sink_masks), RT.use_hurb)
+            if k == "run"]
 
 
 # ----------------------------------------------------------------------
@@ -286,14 +525,60 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
+    import numpy as np
     import optrace_tpu_torch as ot
-    from optrace_tpu_torch.ops import _build, cuda_run, cuda_binning
+    from optrace_tpu_torch.ops import _build, cuda_run, cuda_binning, cuda_trace
     from optrace_tpu_torch.ops.cuda_run import conic_run
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
-    from optrace_tpu_torch.tracer.trace_core import _partition_runs
-    ot.global_options.show_progress_bar = False
-    ot.global_options.show_warnings = False
+    from optrace_tpu_torch.ops.cuda_trace import conic_step
+    from optrace_tpu_torch.parallel import render as render_mod
+    from optrace_tpu_torch.image import render_image as render_image_mod
+    from optrace_tpu_torch.tracer.trace_core import trace_bundle
+    go = ot.global_options
+    go.show_progress_bar = False
+    go.show_warnings = False
     dev = ot.resolve_device()
+    fuse_default = go.cuda_fuse_planar      # the default that this script measures below
+
+    def reset_counts():
+        cuda_run.reset_launch_counts()
+        cuda_binning.reset_launch_counts()
+        cuda_trace.reset_launch_counts()
+
+    def drive_trace(scene, no_pol, n=N_RAYS):
+        """``Raytracer.trace`` of a fresh scene, counters set to 0 just before."""
+        RTd = scene(ot, no_pol)
+        RTd.trace(20000)                        # warm-up at a small size
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        RTd.trace(n)
+        return RTd, time.perf_counter() - t0
+
+    def drive_render(scene):
+        """One batch of ``make_fused_render`` of a fresh scene, counters set to 0 just before."""
+        RTd = scene(ot, True)
+        render_d, _ = ot.make_fused_render(RTd, N_RAYS, Nx=NX, Ny=NY)
+        with torch.no_grad():
+            render_d(ot.make_generator(100))
+            torch.cuda.synchronize()
+            reset_counts()
+            img_d = render_d(ot.make_generator(0))
+            torch.cuda.synchronize()
+        assert bool(torch.isfinite(img_d).all())
+        return RTd, float(img_d[..., 3].sum())
+
+    def sections_agree(RT_a, RT_b, label):
+        """Stored sections of two traces of the same rays: flipped rays
+        within the budget, the others within TOL_P. Returns (flips, max abs)."""
+        pa, pb, wa, wb = RT_a.rays.p_list, RT_b.rays.p_list, RT_a.rays.w_list, RT_b.rays.w_list
+        assert pa.shape == pb.shape, label
+        flipped = np.any((wa > 0) != (wb > 0), axis=1)
+        n_flip = int(flipped.sum())
+        assert n_flip <= FLIPS_PER_MRAY * pa.shape[0] / 1e6, f"{label}: {n_flip} flipped rays"
+        d = float(np.abs(pa[~flipped] - pb[~flipped]).max())
+        assert d <= TOL_P, f"{label}: sections differ by {d}"
+        return n_flip, d
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -310,22 +595,28 @@ def main():
     variants = {"conic_run[nopol,nostore]": (True, False),
                 "conic_run[nopol,store]": (True, True),
                 "conic_run[pol,store]": (False, True)}
+
+    def run_variants(scene, expect_steps, suffix, seed, **kw):
+        """Kernel against plain version for the three variants on the calls
+        that a trace of the scene records. Returns the results by label
+        and the recorded calls of the [nopol,store] variant."""
+        out, kept = {}, None
+        for label, (no_pol, store) in variants.items():
+            calls = capture_run_calls(scene(ot, no_pol), N_RAYS, store, seed=seed)
+            assert [len(c["steps"]) for c in calls] == expect_steps, [len(c["steps"]) for c in calls]
+            out[label] = check_run_calls(calls, label + suffix, **kw)
+            if label == "conic_run[nopol,store]":
+                kept = calls
+            del calls
+            torch.cuda.empty_cache()
+        return out, kept
+
     # (a) one 56-step run of the 28-lens spherical stack
-    stack = []
-    for label, (no_pol, store) in variants.items():
-        calls = capture_run_calls(synthetic_stack_scene(ot, no_pol), N_RAYS, store, seed=11)
-        assert [len(c["steps"]) for c in calls] == [56], [len(c["steps"]) for c in calls]
-        stack.append(check_run_calls(calls, label + "@stack56"))
-        del calls
-        torch.cuda.empty_cache()
-    # (b) the main path's own shapes: the two runs of the double Gauss
-    main_shapes = {}
-    for label, (no_pol, store) in variants.items():
-        calls = capture_run_calls(double_gauss_scene(ot, no_pol), N_RAYS, store, seed=12)
-        assert [len(c["steps"]) for c in calls] == [6, 8], [len(c["steps"]) for c in calls]
-        main_shapes[label] = check_run_calls(calls, label)
-        del calls
-        torch.cuda.empty_cache()
+    stack, _ = run_variants(synthetic_stack_scene, [56], "@stack56", seed=11)
+    # (b) the main path's own shapes: the runs of the double Gauss under the
+    # default of cuda_fuse_planar
+    dg_runs = [15] if fuse_default else [6, 8]
+    main_shapes, _ = run_variants(double_gauss_scene, dg_runs, "", seed=12)
     # binning: rays spread over 1.2 × the extent, and the render's own input
     g = ot.make_generator(13)
     ext = (-43.265, 43.265, -43.265, 43.265)
@@ -342,31 +633,36 @@ def main():
     clustered = [t[order].contiguous() for t in clustered]
     bin_clustered = check_binning(*clustered, ext, "bin_xyzw@clustered")
     assert 20 <= bin_clustered["rays_in_fullest_pixel"] <= 1000, bin_clustered["rays_in_fullest_pixel"]
-    px, py, w, wl, ext_dg = capture_bin_call(ot, double_gauss_scene(ot, True), seed=14)
+    del spread, clustered, order
+    RT = double_gauss_scene(ot, True)
+    with BinRecorder(render_mod) as rec, torch.no_grad():
+        ot.make_fused_render(RT, N_RAYS, Nx=NX, Ny=NY)[0](ot.make_generator(14))
+    px, py, w, wl, _, _, ext_dg = rec.calls[0]
     main_shapes["bin_xyzw"] = check_binning(px, py, w, wl, ext_dg, "bin_xyzw")
-    emit(dict(phase="kernels", gpu=smi, stack56=stack, bin_spread=bin_spread, bin_clustered=bin_clustered,
-              main_path_shapes=list(main_shapes.values()),
+    del px, py, w, wl, rec
+    emit(dict(phase="kernels", gpu=smi, stack56=list(stack.values()), bin_spread=bin_spread,
+              bin_clustered=bin_clustered, main_path_shapes=list(main_shapes.values()),
               tolerances=dict(p=TOL_P, w_rel=TOL_W_REL, pol=TOL_POL, bin=TOL_BIN,
                               bin_per_ray_in_fullest_pixel=TOL_BIN_PER_RAY,
-                              flips_per_mray=FLIPS_PER_MRAY)))
+                              flips_per_mray=FLIPS_PER_MRAY),
+              ops_per_ray_step=RUN_OPS_PER_RAY_STEP))
+    del stack
 
-    # ---- the main path: before each drive the counters are set to 0, ----
-    # ---- right after it they are read ---------------------------------
-    launches = {}       # kernel label -> launches on the main path
+    # ---- the paths: before each drive the counters are set to 0, right ----
+    # ---- after it they are read ----------------------------------------
+    launches = {}       # kernel label -> launches on its path
 
     # ---- 3. fused render ------------------------------------------------
     RT = double_gauss_scene(ot, no_pol=True)
     render, extent = ot.make_fused_render(RT, N_RAYS, Nx=NX, Ny=NY)     # default device
-    runs = [len(i) for k, i in _partition_runs(
-        RT._build_steps(), [ot.parallel.render._detector_sink(RT, 0, "Equidistant", None, NX, NY,
-                                                              dev)[3]]) if k == "run"]
-    assert runs == [6, 8], runs
+    sink_mask = render_mod._detector_sink(RT, 0, "Equidistant", None, NX, NY, dev)[3]
+    runs = run_partition(ot, RT, [sink_mask])
+    assert runs == dg_runs, runs
     img = torch.zeros((NY, NX, 4), dtype=torch.float32, device=dev)
     with torch.no_grad():
         render(ot.make_generator(100))        # warm-up batch, not accumulated
         torch.cuda.synchronize()
-        cuda_run.reset_launch_counts()
-        cuda_binning.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         for b in range(N_BATCHES):
             batch = render(ot.make_generator(b))
@@ -387,13 +683,13 @@ def main():
     # the same batch through the plain versions, on the card
     with torch.no_grad():
         before = (conic_run.launches, bin_xyzw_cuda.launches)
-        ot.global_options.cuda_trace = False
-        ot.global_options.cuda_binning = False
+        go.cuda_trace = False
+        go.cuda_binning = False
         try:
             img_p = render(ot.make_generator(0))
         finally:
-            ot.global_options.cuda_trace = True
-            ot.global_options.cuda_binning = True
+            go.cuda_trace = True
+            go.cuda_binning = True
         assert (conic_run.launches, bin_xyzw_cuda.launches) == before
     p1 = float(img_p[..., 3].sum())
     d_img = float((img_k - img_p).abs().max())
@@ -405,12 +701,13 @@ def main():
     assert abs(float(img_k[..., 3].sum()) - p1) <= 5e-4 * p1, (float(img_k[..., 3].sum()), p1)
     assert d_sum <= 5e-4 * float(img_p.abs().sum()), (d_img, d_sum)
     emit(dict(phase="render", gpu=smi, scene="double_gauss", N_batch=N_RAYS, batches=N_BATCHES,
-              image=[NY, NX, 4], extent=list(extent), runs=runs,
+              cuda_fuse_planar=fuse_default, image=[NY, NX, 4], extent=list(extent), runs=runs,
               launches=dict(conic_run=n_run_render, bin_xyzw=n_bin_render),
               power_on_detector=power, source_power=source_power,
               ms_per_batch=t_render / N_BATCHES * 1e3,
               rays_per_s=N_BATCHES * N_RAYS / t_render,
               kernel_vs_plain=dict(max_abs=d_img, sum_abs=d_sum, power_plain=p1)))
+    del img, img_k, img_p, batch, render
 
     # ---- 4. stored trace -------------------------------------------------
     trace_out = []
@@ -419,12 +716,14 @@ def main():
         n_surf = len(RTt.tracing_surfaces)
         RTt.trace(20000)                        # warm-up at a small size
         torch.cuda.synchronize()
-        cuda_run.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         RTt.trace(N_RAYS)
         t_total = time.perf_counter() - t0
         # one launch for each run, all of the stored variant of this mode
-        assert conic_run.variant_launches == {(not no_pol, True): len(runs)}, conic_run.variant_launches
+        stored_runs = run_partition(ot, RTt)
+        assert stored_runs == dg_runs, stored_runs
+        assert conic_run.variant_launches == {(not no_pol, True): len(stored_runs)}, conic_run.variant_launches
         launches["conic_run[nopol,store]" if no_pol else "conic_run[pol,store]"] = conic_run.launches
         rays = RTt.rays
         assert rays.p_list.shape == (N_RAYS, n_surf + 2, 3), rays.p_list.shape
@@ -443,29 +742,282 @@ def main():
 
         def dev_trace():
             with torch.no_grad():
-                from optrace_tpu_torch.tracer.trace_core import trace_bundle
                 b = src(ot.make_generator(5))
                 return trace_bundle(steps, RTt.n0, outl, *b, no_pol)
-        dev_ms = cuda_ms(dev_trace, reps=5, warmup=1)
+        dev_ms = cuda_ms(dev_trace, reps=3, warmup=1)
         trace_out.append(dict(no_pol=no_pol, N=N_RAYS, surfaces=n_surf,
                               sections=list(rays.p_list.shape),
                               seconds_with_host_copy=t_total, device_ms=dev_ms,
                               ms_per_surface_per_mray=dev_ms / n_surf / (N_RAYS / 1e6),
-                              dead_before_end=dead, infos_rows=RTt._msgs.sum(axis=1).tolist()))
-        del RTt, rays, wl_
-    emit(dict(phase="trace", gpu=smi, scene="double_gauss", traces=trace_out,
+                              dead_before_end=dead,
+                              infos_rows=RTt._msgs.sum(axis=1).tolist()))
+        del RTt, rays, wl_, steps, src
+    emit(dict(phase="trace", gpu=smi, scene="double_gauss", cuda_fuse_planar=fuse_default,
+              traces=trace_out,
               cpu_reference_ms_per_surface_per_mray=CPU_REFERENCE_MS_PER_SURFACE_MRAY))
 
-    # ---- the kernels of the main path ----------------------------------
+    # ---- 5. asphere stack: kernel, then trace → detector_image → sRGB -----
+    # the plain version of an asphere run is about 11 000 eager launches: timed once
+    asph, asph_calls = run_variants(asphere_scene, [20], "@asphere20", seed=15, plain_reps=1)
+    stress = stress_run_call(asph_calls[0], "conic_run[nopol,store]@asphere20,stress",
+                             spread=2.6, tilt=0.25, seed=16)
+    assert stress["counts_miss_tir_outline_ill"][0] > 1000 and stress["counts_miss_tir_outline_ill"][3] > 0, stress
+    del asph_calls
+    torch.cuda.empty_cache()
+
+    RTa = asphere_scene(ot, no_pol=True)
+    assert run_partition(ot, RTa) == [20]
+    RTa.trace(20000)                            # warm-up at a small size
+    RTa.detector_image()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    RTa.trace(N_RAYS)
+    t_trace = time.perf_counter() - t0
+    with BinRecorder(render_image_mod) as rec:
+        t0 = time.perf_counter()
+        rimg = RTa.detector_image()
+        t_image = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rgb = rimg.get("sRGB (Absolute RI)", 945)
+    t_get = time.perf_counter() - t0
+    assert conic_run.launches == 1 and conic_run.kind_launches.get("asphere") == 1, conic_run.kind_launches
+    assert conic_run.variant_launches == {(False, True): 1}
+    assert bin_xyzw_cuda.launches == 1 and len(rec.calls) == 1
+    launches["conic_run[nopol,store]@asphere20"] = conic_run.launches
+    launches["bin_xyzw@detector_image"] = bin_xyzw_cuda.launches
+    source_power_a = sum(rs.power for rs in RTa.ray_sources)
+    data = rimg.data
+    # 20 uncoated surfaces leave about 0.95²⁰ = 0.36 of the power
+    assert data.shape[2] == 4 and np.isfinite(data).all()
+    assert 0.2 * source_power_a < rimg.power() <= source_power_a, (rimg.power(), source_power_a)
+    assert rgb.shape == (945, 945, 3) and np.isfinite(rgb.data).all()
+    assert 0.0 <= rgb.data.min() and rgb.data.max() <= 1.0 and rgb.data.max() > 0.5
+    px, py, w, wl, Nx_a, Ny_a, ext_a = rec.calls[0]
+    bin_image = check_binning(px, py, w, wl, ext_a, "bin_xyzw@detector_image", Nx=Nx_a, Ny=Ny_a)
+    del px, py, w, wl, rec
+    # the same trace and image through the plain versions, on the card: the
+    # raytracer seeds its generator by the count of its traces, so a fresh
+    # scene traced as often draws the same rays
+    RTp = asphere_scene(ot, no_pol=True)
+    before = (conic_run.launches, bin_xyzw_cuda.launches)
+    go.cuda_trace = False
+    go.cuda_binning = False
+    try:
+        RTp.trace(20000)
+        RTp.trace(N_RAYS)
+        rimg_p = RTp.detector_image()
+    finally:
+        go.cuda_trace = True
+        go.cuda_binning = True
+    assert (conic_run.launches, bin_xyzw_cuda.launches) == before
+    flips_a, d_sections = sections_agree(RTa, RTp, "asphere stack, kernel against plain trace")
+    assert int(np.abs(RTp._msgs - RTa._msgs).sum()) <= 2 * flips_a
+    d_image = float(np.abs(rimg_p.data - data).max())
+    if flips_a == 0:        # same hits: the images differ by the binning's order of sums alone
+        assert np.array_equal(rimg_p.extent, rimg.extent)
+        assert d_image <= bin_image["tolerance_plain"], (d_image, bin_image["tolerance_plain"])
+    assert abs(rimg_p.power() - rimg.power()) <= 5e-4 * rimg.power()
+    # the other two variants through their entry points
+    RTd, t_trace_pol = drive_trace(asphere_scene, no_pol=False)
+    assert conic_run.variant_launches == {(True, True): 1} and conic_run.kind_launches.get("asphere") == 1
+    launches["conic_run[pol,store]@asphere20"] = conic_run.launches
+    assert np.isfinite(RTd.rays.pol_list[:, -2]).all() and float(RTd.rays.w_list[:, -2].sum()) > 0
+    RTd, power_render_a = drive_render(asphere_scene)
+    assert conic_run.variant_launches == {(False, False): 1} and conic_run.kind_launches.get("asphere") == 1
+    assert bin_xyzw_cuda.launches == 1 and 0 < power_render_a <= source_power_a
+    launches["conic_run[nopol,nostore]@asphere20"] = conic_run.launches
+    del RTd
+    emit(dict(phase="asphere", gpu=smi, scene="asphere_stack", N=N_RAYS, runs=[20],
+              kernels=list(asph.values()), stress=stress, bin_detector_image=bin_image,
+              path=dict(entry="Raytracer.trace -> detector_image -> get('sRGB (Absolute RI)')",
+                        launches=dict(conic_run=launches["conic_run[nopol,store]@asphere20"],
+                                      bin_xyzw=launches["bin_xyzw@detector_image"]),
+                        trace_seconds_with_host_copy=t_trace, detector_image_seconds=t_image,
+                        get_srgb_seconds=t_get, image=list(data.shape), extent=list(rimg.extent),
+                        power_on_detector=rimg.power(), source_power=source_power_a,
+                        infos_rows=RTa._msgs.sum(axis=1).tolist(),
+                        image_vs_plain_max_abs=d_image, sections_vs_plain_max_abs=d_sections,
+                        flipped_rays_vs_plain=flips_a,
+                        pol_trace_seconds_with_host_copy=t_trace_pol,
+                        fused_render_power_on_detector=power_render_a)))
+    del RTa, RTp, rimg, rimg_p, data, rgb
+
+    # ---- 6. planar kinds: tilted plate, ring, rectangle and slit in a run --
+    go.cuda_fuse_planar = True
+    try:
+        planar, planar_calls = run_variants(planar_stack_scene, [61], "@planar61", seed=17)
+        stress_p = stress_run_call(planar_calls[0], "conic_run[nopol,store]@planar61,stress",
+                                   spread=2.0, tilt=0.1, seed=18)
+        del planar_calls
+        kinds_p = planar["conic_run[nopol,store]"]["step_kinds"]
+        assert kinds_p == {"conic": 56, "tilted": 2, "absorb:ring": 1, "absorb:rect": 1,
+                           "absorb:slit": 1}, kinds_p
+        # through the entry points: one launch that holds every planar kind
+        for label, (no_pol, store) in variants.items():
+            RTs, _ = drive_trace(planar_stack_scene, no_pol) if store else drive_render(planar_stack_scene)
+            assert conic_run.launches == 1 and conic_run.variant_launches == {(not no_pol, store): 1}
+            for tag in ("tilted", "absorb:ring", "absorb:rect", "absorb:slit"):
+                assert conic_run.kind_launches.get(tag) == 1, conic_run.kind_launches
+            launches[label + "@planar61"] = conic_run.launches
+            if label != "conic_run[nopol,store]":
+                del RTs
+        RTs, _ = drive_trace(planar_stack_scene, True)
+        wl_ = RTs.rays.w_list
+        n_stops = [int(((wl_[:, j - 1] > 0) & (wl_[:, j] <= 0)).sum()) - int(RTs._msgs[:, j].sum())
+                   for j, st in enumerate(RTs._build_steps(), start=1) if st.action == "absorb"]
+        assert all(n > 0 for n in n_stops[:3]), n_stops
+        del RTs, wl_
+        # the double Gauss with the ring inside its run
+        dg_fused, _ = run_variants(double_gauss_scene, [15], "@dg15", seed=12)
+        assert dg_fused["conic_run[nopol,store]"]["step_kinds"] == {"conic": 14, "absorb:ring": 1}
+        for label, (no_pol, store) in variants.items():
+            RTd, _ = drive_trace(double_gauss_scene, no_pol) if store else drive_render(double_gauss_scene)
+            assert conic_run.launches == 1 and conic_run.variant_launches == {(not no_pol, store): 1}
+            assert conic_run.kind_launches.get("absorb:ring") == 1, conic_run.kind_launches
+            launches[label + "@dg15"] = conic_run.launches
+            del RTd
+    finally:
+        go.cuda_fuse_planar = fuse_default
+    # flag off: an asphere widens the run, a tilted plate stays out of it and
+    # is traced as a tilted plane by the unrolled step
+    go.cuda_fuse_planar = False
+    try:
+        RTat = asphere_tilted_scene(ot, no_pol=True)
+        kinds = [st.sfns.kind for st in RTat._build_steps()]
+        assert kinds[:10] == ["asphere", "conic", "asphere", "conic", "tilted", "tilted",
+                              "conic", "conic", "conic", "conic"], kinds
+        assert run_partition(ot, RTat) == [4, 4]
+        RTat.trace(20000)
+        reset_counts()
+        RTat.trace(N_RAYS // 4)
+        assert conic_run.launches == 2 and conic_run.kind_launches.get("asphere") == 1 \
+            and "tilted" not in conic_run.kind_launches, conic_run.kind_launches
+        pl = RTat.rays.p_list
+        alive = RTat.rays.w_list[:, 7] > 0
+
+        def slope_y(a, b):
+            return float(np.mean((pl[alive, b, 1] - pl[alive, a, 1]) / (pl[alive, b, 2] - pl[alive, a, 2])))
+        deflection = slope_y(6, 7) - slope_y(4, 5)
+        assert abs(deflection) > 0.03, deflection       # (n − 1)·8° is about 0.085 rad
+        go.cuda_trace = False
+        try:
+            RTpl = asphere_tilted_scene(ot, no_pol=True)
+            RTpl.trace(20000)
+            RTpl.trace(N_RAYS // 4)
+        finally:
+            go.cuda_trace = True
+        _, d_plain = sections_agree(RTat, RTpl, "asphere + tilted, kernel against plain trace")
+        # flag on: the same scene is one run of 10 and gives the same sections
+        go.cuda_fuse_planar = True
+        RTon = asphere_tilted_scene(ot, no_pol=True)
+        assert run_partition(ot, RTon) == [10]
+        RTon.trace(20000)
+        RTon.trace(N_RAYS // 4)
+        _, d_on = sections_agree(RTat, RTon, "asphere + tilted, flag on against flag off")
+        del RTat, RTpl, RTon, pl
+    finally:
+        go.cuda_fuse_planar = fuse_default
+    emit(dict(phase="planar", gpu=smi, N=N_RAYS, planar_stack=list(planar.values()), stress=stress_p,
+              absorbed_at_ring_rect_slit=n_stops[:3], double_gauss_fused=list(dg_fused.values()),
+              asphere_and_tilted_flag_off=dict(runs=[4, 4], tilted_unrolled=True,
+                                               deflection_rad=deflection,
+                                               sections_vs_plain_max_abs=d_plain,
+                                               flag_on_runs=[10], flag_on_max_abs_diff=d_on)))
+
+    # ---- 7. the default of cuda_fuse_planar, measured ---------------------
+    # fused render and stored trace of the double Gauss, flag off, on, on,
+    # off, twice over, within this one call; same seeds in every leg, every
+    # batch timed on the host's clock up to its synchronize
+    legs = []
+    images, device_launch_count = {}, {}
+    RT = double_gauss_scene(ot, no_pol=True)
+    RTt = double_gauss_scene(ot, no_pol=True)
+    steps_t = RTt._build_steps()
+    RTt.rays.init(RTt.ray_sources, N_RAYS, len(RTt.tracing_surfaces) + 2, True)
+    src_t = RTt._make_source_fn(N_RAYS)
+    outl_t = tuple(float(v) for v in RTt.outline)
+    try:
+        for flag in (False, True, True, False) * 2:
+            go.cuda_fuse_planar = flag
+            render, _ = ot.make_fused_render(RT, N_RAYS, Nx=NX, Ny=NY)
+            with torch.no_grad():
+                render(ot.make_generator(100))
+                torch.cuda.synchronize()
+                reset_counts()
+                acc = torch.zeros((NY, NX, 4), dtype=torch.float32, device=dev)
+                batch_ms = []
+                for b in range(N_BATCHES_FLAG):
+                    t0 = time.perf_counter()
+                    acc += render(ot.make_generator(b))
+                    torch.cuda.synchronize()
+                    batch_ms.append((time.perf_counter() - t0) * 1e3)
+                run_launches = conic_run.launches / N_BATCHES_FLAG
+                if flag not in device_launch_count:
+                    device_launch_count[flag] = device_launches(lambda: render(ot.make_generator(0)))
+
+                def dev_trace():
+                    return trace_bundle(steps_t, RTt.n0, outl_t, *src_t(ot.make_generator(5)), True)
+                trace_ms = cuda_ms(dev_trace, reps=3, warmup=1)
+            images.setdefault(flag, acc)
+            legs.append(dict(cuda_fuse_planar=flag, runs=run_partition(ot, RT, [sink_mask]),
+                             ms_per_batch_median=statistics.median(batch_ms), ms_per_batch=batch_ms,
+                             conic_run_launches_per_batch=run_launches,
+                             stored_trace_device_ms=trace_ms))
+            del acc, render
+    finally:
+        go.cuda_fuse_planar = fuse_default
+    assert [leg["runs"] for leg in legs] == [[6, 8], [15], [15], [6, 8]] * 2, legs
+
+    def over(flag, key):
+        return [leg[key] for leg in legs if leg["cuda_fuse_planar"] == flag]
+    ms_off = statistics.median(over(False, "ms_per_batch_median"))
+    ms_on = statistics.median(over(True, "ms_per_batch_median"))
+    spread_same = max(max(v) - min(v) for v in (over(False, "ms_per_batch_median"),
+                                                over(True, "ms_per_batch_median")))
+    # on is the faster setting only beyond the spread of equal legs and
+    # beyond FLAG_MIN_GAIN of the batch; a tie keeps off
+    on_wins = (ms_off - ms_on) > max(spread_same, FLAG_MIN_GAIN * ms_off)
+    d_flag = float((images[True] - images[False]).abs().sum())
+    p_off = float(images[False][..., 3].sum())
+    assert abs(float(images[True][..., 3].sum()) - p_off) <= 5e-4 * p_off
+    assert d_flag <= 5e-4 * float(images[False].abs().sum()), d_flag
+    emit(dict(phase="fuse_planar", gpu=smi, scene="double_gauss", N_batch=N_RAYS,
+              batches_per_leg=N_BATCHES_FLAG, legs=legs, ms_per_batch_off=ms_off, ms_per_batch_on=ms_on,
+              stored_trace_device_ms_off=statistics.median(over(False, "stored_trace_device_ms")),
+              stored_trace_device_ms_on=statistics.median(over(True, "stored_trace_device_ms")),
+              device_launches_per_batch_off=device_launch_count[False],
+              device_launches_per_batch_on=device_launch_count[True],
+              spread_between_equal_legs_ms=spread_same, min_gain=FLAG_MIN_GAIN,
+              faster_setting="on" if on_wins else "tie: off", default_in_the_package=fuse_default,
+              default_matches_this_run=bool(fuse_default == on_wins),
+              images_sum_abs_diff=d_flag, image_power_off=p_off))
+    del images, RT, RTt
+
+    # ---- 8. the single-step kernel's probe --------------------------------
+    reset_counts()
+    step_res = check_conic_step()
+    launches["conic_step"] = step_res["launches"]
+    emit(dict(phase="conic_step_probe", gpu=smi, **step_res))
+
+    # ---- the kernels of every path --------------------------------------
+    rows = dict(main_shapes)
+    rows.update({k + "@asphere20": v for k, v in asph.items()})
+    rows.update({k + "@planar61": v for k, v in planar.items()})
+    rows.update({k + "@dg15": v for k, v in dg_fused.items()})
+    rows["bin_xyzw@detector_image"] = bin_image
+    rows["conic_step"] = step_res
+    sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
+               "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),
+               "conic_step": ("conic_step.cu", "optrace_tpu/ops/pallas_trace.py:152")}
     kernels = []
-    for label, r in main_shapes.items():
-        assert launches.get(label, 0) > 0, f"{label} was not launched on the main path"
-        src_file = "bin_xyzw.cu" if label == "bin_xyzw" else "conic_run.cu"
+    for label, r in rows.items():
+        n_launch = launches.get(label, 0)
+        assert n_launch > 0, f"{label} was not launched on any path"
+        src_file, replaces = sources[label.split("[")[0].split("@")[0]]
         kernels.append(dict(
-            name=label, route="cuda", source=f"optrace_tpu_torch/csrc/{src_file}",
-            replaces=("optrace_tpu/ops/pallas_binning.py:83" if label == "bin_xyzw"
-                      else "optrace_tpu/ops/pallas_run.py:431"),
-            launches=launches[label], max_abs_err=max(r["max_abs_err"], r.get("max_abs_err_sections", 0.0)),
+            name=label, route="cuda", source=f"optrace_tpu_torch/csrc/{src_file}", replaces=replaces,
+            launches=n_launch, max_abs_err=max(r["max_abs_err"], r.get("max_abs_err_sections", 0.0)),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
     emit(dict(kernels=kernels))

@@ -3,9 +3,11 @@
 A sequential Monte-Carlo raytracer on torch tensors, for an NVIDIA Hopper
 GPU: scene description, source sampling, the surface-by-surface trace
 (Snell, Fresnel, polarization, INFOS counters), the detector hit search and
-XYZW binning behind the fused streaming render. The two hot loops are
-hand-written CUDA kernels (``ops/cuda_run.py``, ``ops/cuda_binning.py``)
-with a plain PyTorch version beside each.
+XYZW binning behind the fused streaming render, and the stored trace carried
+through to the detector image and its sRGB rendering. The hot loops are
+hand-written CUDA kernels (``ops/cuda_run.py``, ``ops/cuda_binning.py``,
+and the single-step probe ``ops/cuda_trace.py``) with a plain PyTorch
+version beside each.
 
 Every entry point takes ``device=None``, which means the CUDA device; the
 CPU is used only when ``device="cpu"`` is passed.
@@ -18,9 +20,11 @@ from . import ops  # noqa: F401
 
 from .spectrum import Spectrum, LightSpectrum, RefractionIndex  # noqa: F401
 from .geometry import (Surface, CircularSurface, RingSurface, ConicSurface,  # noqa: F401
-                       SphericalSurface, RectangularSurface,
+                       SphericalSurface, RectangularSurface, AsphericSurface,
+                       TiltedSurface, SlitSurface,
                        Point, Line, Element, Lens, Aperture,
                        Detector, RaySource, Group)
+from .image import BaseImage, ScalarImage, GrayscaleImage, RGBImage, RenderImage  # noqa: F401
 from .tracer import Raytracer, RayStorage  # noqa: F401
 from .parallel import make_fused_render, make_fused_render_multi  # noqa: F401
 from . import presets  # noqa: F401

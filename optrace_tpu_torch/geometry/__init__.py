@@ -2,7 +2,8 @@
 ``optrace_tpu/geometry``)."""
 
 from .surface import (Surface, CircularSurface, RingSurface, ConicSurface,  # noqa: F401
-                      SphericalSurface, RectangularSurface)
+                      SphericalSurface, RectangularSurface, AsphericSurface,
+                      TiltedSurface, SlitSurface)
 from .point import Point  # noqa: F401
 from .line import Line  # noqa: F401
 from .element import Element  # noqa: F401

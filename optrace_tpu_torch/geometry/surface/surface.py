@@ -152,15 +152,17 @@ class Surface(BaseClass):
     def _hit_t(self, o, s):
         """Tensor hit solve in relative coordinates → (t, valid, ill).
 
-        Default: flat-plane hit for flat surfaces; curved subclasses bring
-        their own solve.
+        Default: flat-plane hit for flat surfaces, the bracketed numeric
+        solve over the sag for curved ones; subclasses with a closed form
+        bring their own.
         """
         if self.is_flat():
             t = geom.hit_plane(o, s)
             valid = torch.isfinite(t) & (t >= -geom.C_EPS)
             return t, valid, torch.zeros(t.shape, dtype=torch.bool)
-        raise NotImplementedError("the bracketed numeric hit solve arrives with the "
-                                  "asphere slice (ROADMAP: kernel 1 asphere step kind)")
+        z0 = self.z_min - self.pos[2]
+        z1 = self.z_max - self.pos[2]
+        return geom.hit_newton(self._sag, o, s, z0, z1)
 
     def find_hit(self, p, s, where=None):
         """Ray-surface intersection (host numpy in and out, f64 on the CPU).

@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 ``_build/lib<name>_<hash>.so``, compiled by ``nvcc`` for ``sm_90a`` at first
-use. All sources are compiled together, one ``nvcc`` process each, and the
-hash covers every source and the flags, so an edited source is rebuilt. A
-failed build raises with ``nvcc``'s output; there is no other route to the
+use. All sources are compiled together, one ``nvcc`` process each. The
+hash covers the flags and every file under ``csrc/``, the headers
+(``*.cuh``) that several sources share included, so an edit of any of them
+rebuilds every library; only the ``*.cu`` files are compiled. A failed
+build raises with ``nvcc``'s output; there is no other route to the
 kernels.
 """
 
@@ -47,13 +49,16 @@ def find_nvcc() -> str:
 
 
 def _sources() -> list:
+    """The translation units: one library each."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def _key() -> str:
+    """Hash of the flags and of every file under ``csrc/``: a header that
+    two sources include is part of both libraries."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
+    for src in sorted(f for f in CSRC.rglob("*") if f.is_file()):
+        h.update(str(src.relative_to(CSRC)).encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 

@@ -1,23 +1,31 @@
 """Whole-run trace kernel: wrapper, step table and plain PyTorch version.
 
 Counterpart of ``optrace_tpu/ops/pallas_run.py`` (``conic_run_pallas``): L
-consecutive refract steps on flat discs, spheres and conics for every ray,
-with the ray state kept on chip for the whole run. The kernel is CUDA C++
-(``csrc/conic_run.cu``, which also carries the design note and the bound);
-:func:`conic_run_reference` is its plain PyTorch version: a Python loop
-over a tensor-valued :func:`_one_step` in the same operation order, so that
-both make the same hit/miss decisions. The plain version is what a run uses
-on the CPU, in f64 and when a gradient is needed.
+consecutive trace steps for every ray, with the ray state kept on chip for
+the whole run. A step refracts on a flat disc, a sphere or conic, an even
+asphere or a tilted plane, or absorbs at a fused aperture (circle, ring,
+rectangle or slit). The kernel is CUDA C++ (``csrc/conic_run.cu`` around the
+step function of ``csrc/trace_step.cuh``; the sources carry the design note
+and the bound); :func:`conic_run_reference` is its plain PyTorch version: a
+Python loop over a tensor-valued :func:`_one_step` in the same operation
+order, so that both make the same hit/miss decisions. The plain version is
+what a run uses on the CPU, in f64 and when a gradient is needed.
 
 A step is a dict of python floats (the per-step constants, as
-``tracer/trace_core.py:_run_steps`` builds them): ``rho, k, r, z_min,
-z_max, is_flat, dx, dy, dz, ox, oy, oz, out`` (6 outline bounds relative
-to the applied origin) and ``kind``. Only the kinds in :data:`RUN_KINDS`
-exist in the kernel so far; any other kind makes both versions raise.
+``tracer/trace_core.py:_run_steps`` builds them): ``kind`` (one of
+:data:`RUN_KINDS`, or a planar aperture shape for an absorb step), ``rho, k,
+r, z_min, z_max, is_flat, dx, dy, dz, ox, oy, oz, out`` (6 outline bounds
+relative to the applied origin), and where they apply ``action`` ("refract"
+by default, or "absorb"), ``mask`` ("circle", "ring", "rect", "slit") with
+``ri, hw, hh, hwi, hhi, angle``, ``tn`` (unit normal of a tilted plane) and
+``coeff`` (polynomial of an even asphere, any length >= 1). On the gradient
+path a value may be a 0-dim tensor. A step of any other kind makes both
+versions raise.
 """
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -26,36 +34,95 @@ from .geom import N_EPS, C_EPS, ADVANCE_STANDOFF
 
 INV_SQRT2 = float(np.sqrt(0.5))
 INF = float("inf")
+ASPH_ITERS = 40      # iterations of the asphere's bracketed solve (no early exit)
 
-#: surface kinds the run can hold (``scene_compile`` kind names)
-RUN_KINDS = ("conic", "circle", "flat")
+#: surface kinds a refract step of the run can hold (``scene_compile`` kind names)
+RUN_KINDS = ("conic", "circle", "flat", "asphere", "tilted")
+#: planar shapes an absorb step of the run can hold
+ABSORB_KINDS = ("circle", "flat", "ring", "rect", "slit")
+MASKS = ("circle", "ring", "rect", "slit")
 
-STEP_WORDS = 27      # 32-bit words of one ``Step`` in csrc/conic_run.cu
-MAX_RUN = 400        # steps per launch: the table must fit in 48 KB of shared memory
+STEP_WORDS = 44      # 32-bit words of one ``Step`` in csrc/trace_step.cuh
+SMEM_BYTES = 48 * 1024   # the step table and its coefficient region must fit
+#                          the shared memory a block gets without opting in to more
+MAX_RUN = SMEM_BYTES // (4 * STEP_WORDS)     # steps per launch, with no asphere among them
+_KIND_CODE = {"conic": 0, "flat": 1, "asphere": 2, "tilted": 3}
+_INT_WORDS = [23, 24, 25, 26, 27, 41, 42]    # kind, n1_row, n2_row, action, mask, coeff_off, n_coeff
+
+
+def _action(c) -> str:
+    return c.get("action", "refract")
+
+
+def _solve_kind(c) -> str:
+    """Which hit solve a step takes: every planar shape is "flat"."""
+    if c["is_flat"]:
+        return "flat"
+    kind = c.get("kind", "conic")
+    return kind if kind in ("asphere", "tilted") else "conic"
 
 
 def _check_kinds(steps) -> None:
     for c in steps:
-        if c.get("kind", "conic") not in RUN_KINDS:
+        kind, action = c.get("kind", "conic"), _action(c)
+        ok = (action == "refract" and kind in RUN_KINDS) or \
+             (action == "absorb" and kind in ABSORB_KINDS and c.get("mask", "circle") in MASKS)
+        if not ok:
             raise NotImplementedError(
-                f"step kind '{c.get('kind')}' is not ported to the run kernel yet "
-                "(ROADMAP: kernel 1's asphere, tilted and fused-absorber step kinds)")
+                f"a step of kind '{kind}' with action '{action}' is not ported to the run "
+                "kernel: it holds refractions on " + ", ".join(RUN_KINDS)
+                + " and absorbers on " + ", ".join(ABSORB_KINDS))
+        if kind == "asphere" and len(c.get("coeff", ())) < 1:
+            raise ValueError("an asphere step needs at least one polynomial coefficient")
 
 
 # ----------------------------------------------------------------------
 # plain version
 
+def _asph_sag_F(t, px, py, pz, sx, sy, sz, rho, k, coeff):
+    """F(t) = z(t) − sag_asphere(x(t), y(t)): the root function of the
+    bracketed solve (component form of geom.hit_newton's closure over
+    geom.sag_asphere, same guards)."""
+    x = px + t * sx
+    y = py + t * sy
+    r2 = x * x + y * y
+    arg = 1.0 - (k + 1.0) * rho * rho * r2
+    ok = arg > 0
+    root = torch.sqrt(torch.where(ok, arg, 1.0))
+    root = torch.where(ok, root, 0.0)
+    z = rho * r2 / (1.0 + root)
+    poly = torch.zeros_like(r2)
+    for cf in coeff[::-1]:
+        poly = poly * r2 + cf
+    return pz + t * sz - (z + poly * r2)
+
+
+def _cos_sin(angle):
+    if isinstance(angle, torch.Tensor):
+        return torch.cos(angle), torch.sin(angle)
+    return math.cos(angle), math.sin(angle)
+
+
 def _one_step(px, py, pz, sx, sy, sz, w, n1, n2, c, pol=None):
-    """One refract step on component tensors; ``c`` is the per-step
-    constant dict; ``pol`` is None (no-pol) or a (qx, qy, qz) tuple.
-    Returns new state, pol and the (miss, tir, outline, ill) masks."""
+    """One step on component tensors; ``c`` is the per-step constant dict;
+    ``pol`` is None (no-pol) or a (qx, qy, qz) tuple. Returns new state, pol
+    and the (miss, tir, outline, ill) masks.
+
+    ``c["single"]`` selects the single-step form of ``ops/cuda_trace.py``:
+    no frame shift, aperture test ``r² <= r·r`` without N_EPS, no miss kill
+    and no outline box."""
     where = torch.where
     hw = w > 0
+    single = bool(c.get("single", False))
+    solve = _solve_kind(c)
 
     # --- frame shift into this surface's vertex frame ------------------
-    px = px - c["dx"]
-    py = py - c["dy"]
-    pz = pz - c["dz"]
+    if not single:
+        px = px - c["dx"]
+        py = py - c["dy"]
+        pz = pz - c["dz"]
+        if "dpos" in c:     # gradient path: residual of the position parameter
+            px, py, pz = px - c["dpos"][0], py - c["dpos"][1], pz - c["dpos"][2]
     # previous section position: origin of the outline intersection (the
     # pol branch below must not reuse these names)
     ppx, ppy, ppz = px, py, pz
@@ -69,11 +136,44 @@ def _one_step(px, py, pz, sx, sy, sz, w, n1, n2, c, pol=None):
     pz = where(adv, pz + t0 * sz, pz)
 
     ill = torch.zeros_like(hw)
-    if c["is_flat"]:
+    if solve == "flat":
         # plane z=0 hit (geom.hit_plane); clamp shared below
         sz_ok = sz != 0
         t = where(sz_ok, -pz / where(sz_ok, sz, 1.0), INF)
         valid = torch.isfinite(t) & (t >= -C_EPS)
+    elif solve == "tilted":
+        # tilted plane through the vertex with a constant unit normal; the
+        # deliberately unguarded division carries den = 0 into valid = False
+        tnx, tny, tnz = c["tn"]
+        num = -(px * tnx + py * tny + pz * tnz)
+        den = sx * tnx + sy * tny + sz * tnz
+        t = num / den
+        valid = torch.isfinite(t) & (den != 0)
+    elif solve == "asphere":
+        # even asphere: bracketed Illinois false position, the component
+        # form of geom.hit_newton (ASPH_ITERS fixed iterations; the
+        # deliberately unguarded divisions by sz carry inf/nan into
+        # valid = False)
+        rho, k, coeff = c["rho"], c["k"], c["coeff"]
+        eps_b = C_EPS / 10.0
+        t1 = torch.clamp((c["z_min"] - eps_b - pz) / sz, min=-C_EPS)
+        t2 = (c["z_max"] + eps_b - pz) / sz
+        f1 = _asph_sag_F(t1, px, py, pz, sx, sy, sz, rho, k, coeff)
+        f2 = _asph_sag_F(t2, px, py, pz, sx, sy, sz, rho, k, coeff)
+        ill = (f1 * f2 > 0.0) & hw
+        for _ in range(ASPH_ITERS):
+            df = f2 - f1
+            denom = where(torch.abs(df) > N_EPS, df, 1.0)
+            ts = t1 - f1 / denom * (t2 - t1)
+            mid = 0.5 * (t1 + t2)
+            inside = (ts > torch.minimum(t1, t2)) & (ts < torch.maximum(t1, t2))
+            ts = where(inside, ts, mid)
+            fs = _asph_sag_F(ts, px, py, pz, sx, sy, sz, rho, k, coeff)
+            use_left = f1 * fs <= 0.0
+            t1, f1, t2, f2 = (where(use_left, t1, ts), where(use_left, 0.5 * f1, fs),   # Illinois m=0.5
+                              where(use_left, ts, t2), where(use_left, fs, 0.5 * f2))
+        t = 0.5 * (t1 + t2)
+        valid = torch.isfinite(t) & ~ill
     else:
         # --- conic root (geom.hit_conic: Citardauq + Newton polish) ----
         rho, k = c["rho"], c["k"]
@@ -135,20 +235,72 @@ def _one_step(px, py, pz, sx, sy, sz, w, n1, n2, c, pol=None):
     hx = px + t_safe * sx
     hy = py + t_safe * sy
     hz = pz + t_safe * sz
-    r2h = hx * hx + hy * hy     # reused by the conic normal below
+    r_ap = c["r"]
+    r2h = hx * hx + hy * hy     # reused by the conic/asphere normal below
     px = where(hw, hx, px)
     py = where(hw, hy, py)
     pz = where(hw, hz, pz)
 
-    hit = (r2h <= (c["r"] + N_EPS) ** 2) & ok & hw
-    miss = hw & ~hit
-    w = where(miss, 0.0, w)
+    if _action(c) == "absorb":
+        # fused aperture: rays HITTING the shape are absorbed, rays through
+        # the opening go on untouched (no miss kill, no refraction; the
+        # direction and the polarization stay as they are)
+        mask = c.get("mask", "circle")
+        if mask == "ring":
+            hitm = (r2h <= (r_ap + N_EPS) ** 2) & (r2h >= (c["ri"] - N_EPS) ** 2)
+        elif mask in ("rect", "slit"):
+            ca, sa = _cos_sin(c["angle"])
+            xr = hx * ca + hy * sa
+            yr = -hx * sa + hy * ca
+            hitm = (torch.abs(xr) <= c["hw"] + N_EPS) & (torch.abs(yr) <= c["hh"] + N_EPS)
+            if mask == "slit":
+                innm = (torch.abs(xr) < c["hwi"] - N_EPS) & (torch.abs(yr) < c["hhi"] - N_EPS)
+                hitm = hitm & ~innm
+        else:           # circle / full plane
+            hitm = r2h <= (r_ap + N_EPS) ** 2
+        hit = hitm & ok & hw
+        w = where(hit, 0.0, w)
+        miss = torch.zeros_like(hw)
+        n_tir = torch.zeros_like(hw)
+        return _outline_block(px, py, pz, sx, sy, sz, w, pol, ppx, ppy, ppz, c, miss, n_tir, ill)
 
-    # --- normal (geom.normal_conic / flat) -----------------------------
-    if c["is_flat"]:
+    if single:
+        hit = (r2h <= r_ap * r_ap) & ok & hw
+        miss = torch.zeros_like(hw)
+    else:
+        hit = (r2h <= (r_ap + N_EPS) ** 2) & ok & hw
+        miss = hw & ~hit
+        w = where(miss, 0.0, w)
+
+    # --- normal (geom.normal_conic / normal_asphere / tilted / flat) ---
+    if solve == "flat":
         nx = torch.zeros_like(px)
         ny = torch.zeros_like(px)
         nz = torch.ones_like(px)
+    elif solve == "tilted":
+        tnx, tny, tnz = c["tn"]
+        nx = torch.zeros_like(px) + tnx
+        ny = torch.zeros_like(px) + tny
+        nz = torch.zeros_like(px) + tnz
+    elif solve == "asphere":
+        # geom.normal_asphere: radial slope m = dsag/dr, n ∝ (−m/r·x,
+        # −m/r·y, 1) normalized. r² reuses the aperture-mask product: the
+        # normal is only consumed under hit/upd masks, where p == (hx, hy)
+        rho, k, coeff = c["rho"], c["k"], c["coeff"]
+        r = torch.sqrt(torch.clamp(r2h, min=N_EPS * N_EPS))
+        root = torch.sqrt(torch.clamp(1.0 - (k + 1.0) * rho * rho * r * r, min=N_EPS))
+        m = rho * r / root
+        dpoly = torch.zeros_like(r2h)
+        for i in range(len(coeff) - 1, -1, -1):
+            dpoly = dpoly * r2h + 2.0 * (i + 1.0) * coeff[i]
+        m = m + dpoly * r
+        mr = m / r
+        nxu = -mr * px
+        nyu = -mr * py
+        inv = 1.0 / torch.sqrt(nxu * nxu + nyu * nyu + 1.0)
+        nx = nxu * inv
+        ny = nyu * inv
+        nz = inv
     else:
         rho, k = c["rho"], c["k"]
         arg = 1.0 - k * rho * rho * r2h     # r2h == px²+py² wherever the normal is used
@@ -219,7 +371,17 @@ def _one_step(px, py, pz, sx, sy, sz, w, n1, n2, c, pol=None):
     sy = where(upd, sy_, sy)
     sz = where(upd, sz_, sz)
 
-    # --- outline-box kill, intersected FROM THE PREVIOUS POSITION ------
+    if single:
+        return (px, py, pz, sx, sy, sz, w), pol, (miss, n_tir, torch.zeros_like(hw), ill)
+    return _outline_block(px, py, pz, sx, sy, sz, w, pol, ppx, ppy, ppz, c, miss, n_tir, ill)
+
+
+def _outline_block(px, py, pz, sx, sy, sz, w, pol, ppx, ppy, ppz, c, miss, n_tir, ill):
+    """Outline-box escape kill shared by the refract and the absorb step
+    (trace_core._outline_intersection): rays outside the box are
+    intersected with it FROM THE SAVED PREVIOUS POSITION ppx/ppy/ppz and
+    absorbed; returns the step's full result tuple."""
+    where = torch.where
     xs, xe, ys, ye, zs, ze = c["out"]
     inside = (xs < px) & (px < xe) & (ys < py) & (py < ye) & (zs < pz) & (pz < ze)
     outl = ~inside & (w > 0)
@@ -270,30 +432,58 @@ def conic_run_reference(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
 def _step_table(steps, med_idx) -> np.ndarray:
     """The (L, STEP_WORDS) table of ``Step`` structs. Derived constants are
     evaluated in f64, as the plain version evaluates them from the python
-    floats, and rounded once to f32."""
-    L = len(steps)
-    tab = np.zeros((L, STEP_WORDS), dtype=np.float32)
-    itab = tab.view(np.int32)
-    for j, (c, (r1, r2)) in enumerate(zip(steps, med_idx)):
+    floats, and rounded once to f32. The asphere coefficients lie behind
+    the table, in :func:`_coeff_region`; a step names its own by offset
+    and count."""
+    rows, ints = [], []
+    coeff_off = 0
+    for c, (r1, r2) in zip(steps, med_idx):
         rho, k = float(c["rho"]), float(c["k"])
-        tab[j, 0:3] = (c["dx"], c["dy"], c["dz"])
-        tab[j, 3:6] = (c["ox"], c["oy"], c["oz"])
-        tab[j, 6] = c["z_min"] - ADVANCE_STANDOFF
-        tab[j, 7] = 1.0 / rho
-        tab[j, 8] = 2.0 / rho
-        tab[j, 9] = k
-        tab[j, 10] = k + 1.0
-        tab[j, 11] = c["z_min"] - N_EPS
-        tab[j, 12] = c["z_max"] + N_EPS
-        tab[j, 13] = c["z_max"]
-        tab[j, 14] = (c["r"] + N_EPS) ** 2
-        tab[j, 15] = k * rho * rho
-        tab[j, 16] = -rho
-        tab[j, 17:23] = c["out"]
-        itab[j, 23] = int(bool(c["is_flat"]))
-        itab[j, 24] = int(r1)
-        itab[j, 25] = int(r2)
+        z_min, z_max, r = c["z_min"], c["z_max"], c["r"]
+        solve = _solve_kind(c)
+        n_cf = len(c["coeff"]) if solve == "asphere" else 0
+        rows.append((
+            c["dx"], c["dy"], c["dz"], c["ox"], c["oy"], c["oz"],
+            z_min - ADVANCE_STANDOFF, 1.0 / rho, 2.0 / rho, k, k + 1.0,
+            z_min - N_EPS, z_max + N_EPS, z_max,
+            r * r if c.get("single") else (r + N_EPS) ** 2,
+            k * rho * rho, -rho, *c["out"],
+            0.0, 0.0, 0.0, 0.0, 0.0,                        # 23-27: integer words, below
+            (c.get("ri", 0.0) - N_EPS) ** 2,
+            c.get("hw", 1.0) + N_EPS, c.get("hh", 1.0) + N_EPS,
+            c.get("hwi", 0.0) - N_EPS, c.get("hhi", 0.0) - N_EPS,
+            *_cos_sin(float(c.get("angle", 0.0))), *c.get("tn", (0.0, 0.0, 1.0)),
+            (k + 1.0) * rho * rho, z_min - C_EPS / 10.0, z_max + C_EPS / 10.0,
+            0.0, 0.0, 0.0))                                 # 41-43: integer words and padding
+        ints.append((_KIND_CODE[solve], int(r1), int(r2), int(_action(c) == "absorb"),
+                     MASKS.index(c.get("mask", "circle")), coeff_off, n_cf))
+        coeff_off += 2 * n_cf
+    # one rounding from f64 to f32 for every word, as an assignment of a
+    # python float into an f32 array rounds
+    tab = np.asarray(rows, dtype=np.float64).astype(np.float32).reshape(len(steps), STEP_WORDS)
+    tab.view(np.int32)[:, _INT_WORDS] = np.asarray(ints, dtype=np.int32)
     return tab
+
+
+def _coeff_region(steps) -> np.ndarray:
+    """The coefficient region behind the step table: for each asphere step
+    its n coefficients a_i, then the n factors 2(i+1)·a_i of the slope's
+    polynomial, each evaluated in f64 and rounded once."""
+    vals = []
+    for c in steps:
+        if _solve_kind(c) == "asphere":
+            cf = [float(v) for v in c["coeff"]]
+            vals += cf + [2.0 * (i + 1.0) * v for i, v in enumerate(cf)]
+    return np.asarray(vals, dtype=np.float32)
+
+
+def _table_bytes(steps, med_idx) -> bytes:
+    """Step table and coefficient region as the kernel reads them."""
+    raw = _step_table(steps, med_idx).tobytes() + _coeff_region(steps).tobytes()
+    if len(raw) > SMEM_BYTES:
+        raise ValueError(f"the step table of this run takes {len(raw)} B of shared memory, "
+                         f"more than {SMEM_BYTES} B: split the run")
+    return raw
 
 
 @functools.lru_cache(maxsize=64)
@@ -309,12 +499,12 @@ def _lib():
     lib = _build.load("conic_run")
     if not getattr(lib, "_ot_ready", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.conic_run_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ctypes.c_longlong,
-                                         vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.conic_run_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ctypes.c_longlong,
+                                         vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.conic_run_launch.restype = ci
         lib.conic_run_step_bytes.restype = ci
         if lib.conic_run_step_bytes() != 4 * STEP_WORDS:
-            raise RuntimeError("Step layout of csrc/conic_run.cu and STEP_WORDS disagree")
+            raise RuntimeError("Step layout of csrc/trace_step.cuh and STEP_WORDS disagree")
         lib._ot_ready = True
     return lib
 
@@ -332,7 +522,7 @@ def _check(name, t, shape, device):
 
 
 def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
-    """Run L consecutive conic/flat refract steps for every ray.
+    """Run L consecutive trace steps for every ray.
 
     On CUDA tensors this launches the kernel (or raises); tensors on the
     CPU take the plain version :func:`conic_run_reference`.
@@ -375,8 +565,11 @@ def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
     pol = pol.contiguous() if pol is not None else None
 
     lib = _lib()
+    # a run of flat and conic refractions alone takes the instantiation of
+    # the kernel that holds no other step kind (fewer registers)
+    tags = {step_tag(c) for c in steps}
     with torch.cuda.device(dev):
-        table = _device_table(_step_table(steps, med_idx).tobytes(), dev)
+        table = _device_table(_table_bytes(steps, med_idx), dev)
         p2, s2, w2 = torch.empty_like(p), torch.empty_like(s), torch.empty_like(w)
         pol2 = torch.empty_like(pol) if pol is not None else None
         counts = torch.zeros((L, 4), dtype=torch.int32, device=dev)
@@ -391,22 +584,35 @@ def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
             return t.data_ptr() if t is not None else None
 
         rc = lib.conic_run_launch(
-            ptr(p), ptr(s), ptr(w), ptr(pol), ptr(n_tab), ptr(table), L, N,
+            ptr(p), ptr(s), ptr(w), ptr(pol), ptr(n_tab), ptr(table), L, table.numel(), N,
             ptr(p2), ptr(s2), ptr(w2), ptr(pol2), ptr(counts),
             ptr(ys_p), ptr(ys_w), ptr(ys_pol),
-            int(pol is not None), int(store), torch.cuda.current_stream(dev).cuda_stream)
+            int(pol is not None), int(store), int(not tags <= {"conic", "flat"}),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conic_run kernel launch failed with CUDA error {rc}")
     conic_run.launches += 1
     variant = (pol is not None, bool(store))
     conic_run.variant_launches[variant] = conic_run.variant_launches.get(variant, 0) + 1
+    for tag in tags:
+        conic_run.kind_launches[tag] = conic_run.kind_launches.get(tag, 0) + 1
     return (p2, s2, w2, pol2), (counts, ys_p, ys_w, ys_pol)
+
+
+def step_tag(c) -> str:
+    """What a step makes the kernel do: the hit solve of a refract step
+    ("conic", "flat", "asphere", "tilted") or "absorb:<mask>"."""
+    if _action(c) == "absorb":
+        return "absorb:" + c.get("mask", "circle")
+    return _solve_kind(c)
 
 
 conic_run.launches = 0              # kernel launches since the last reset
 conic_run.variant_launches = {}     # the same, by (with_pol, store)
+conic_run.kind_launches = {}        # launches that held a step of each step_tag
 
 
 def reset_launch_counts() -> None:
     conic_run.launches = 0
     conic_run.variant_launches = {}
+    conic_run.kind_launches = {}

@@ -13,9 +13,8 @@ pushed away from their singular values before use.
 - no-hit / behind-surface cases are signalled via flags, the caller
   implements the "clamp to z_max plane" bookkeeping (:func:`clamp_abnormal`).
 
-The even-asphere and numeric-normal functions (``hit_newton``,
-``sag_asphere``, ``normal_asphere``, ``normal_numeric``) arrive with the
-asphere slice of the port.
+``normal_numeric`` (the exact normal of a user's sag function) arrives with
+the generic surfaces.
 """
 
 import torch
@@ -48,6 +47,35 @@ def sag_conic_radial(r2, rho, k):
     return rho * r2 / (1.0 + root)
 
 
+def sag_asphere(x, y, rho, k, coeffs):
+    """Even asphere: conic + Σ aᵢ·r^(2(i+1)) over the polynomial
+    coefficients (the polynomial starts at r²)."""
+    r2 = x * x + y * y
+    z = sag_conic_radial(r2, rho, k)
+    # Horner in r²: a0*r2 + a1*r2² + ...
+    poly = torch.zeros_like(r2)
+    for c in coeffs[::-1]:
+        poly = poly * r2 + c
+    return z + poly * r2
+
+
+def dsag_conic_dr(r, rho, k):
+    """Radial derivative m = dz/dr = ρr/√(1−(k+1)ρ²r²)."""
+    root = torch.sqrt(torch.clamp(1.0 - (k + 1.0) * rho * rho * r * r, min=N_EPS))
+    return rho * r / root
+
+
+def dsag_asphere_dr(r, rho, k, coeffs):
+    """Radial derivative of the even asphere."""
+    r2 = r * r
+    # d/dr Σ aᵢ r^(2(i+1)) = Σ 2(i+1) aᵢ r^(2i+1)
+    dpoly = torch.zeros_like(r2)
+    n = len(coeffs)
+    for i in range(n - 1, -1, -1):
+        dpoly = dpoly * r2 + 2.0 * (i + 1.0) * coeffs[i]
+    return dsag_conic_dr(r, rho, k) + dpoly * r
+
+
 # ----------------------------------------------------------------------
 # normals (unit vectors, +z oriented)
 
@@ -66,6 +94,22 @@ def normal_conic(x, y, rho, k):
     arg_z = 1.0 - (nx * nx + ny * ny)
     nz = torch.sqrt(torch.where(arg_z > N_EPS, arg_z, N_EPS))
     return torch.stack([nx, ny, nz], dim=-1)
+
+
+def normal_from_radial_deriv(x, y, m_over_r):
+    """Normal from radial slope divided by radius: for rotationally symmetric
+    sag with m = dz/dr, n ∝ (−(m/r)x, −(m/r)y, 1)."""
+    nx = -m_over_r * x
+    ny = -m_over_r * y
+    nz = torch.ones_like(x)
+    inv = 1.0 / torch.sqrt(nx * nx + ny * ny + 1.0)
+    return torch.stack([nx * inv, ny * inv, nz * inv], dim=-1)
+
+
+def normal_asphere(x, y, rho, k, coeffs):
+    r = torch.sqrt(torch.clamp(x * x + y * y, min=N_EPS * N_EPS))
+    m = dsag_asphere_dr(r, rho, k, coeffs)
+    return normal_from_radial_deriv(x, y, m / r)
 
 
 # ----------------------------------------------------------------------
@@ -107,6 +151,15 @@ def hit_plane(o, s):
     sz = s[..., 2]
     ok = sz != 0
     t = -o[..., 2] / torch.where(ok, sz, 1.0)
+    return torch.where(ok, t, INF)
+
+
+def hit_tilted(o, s, n):
+    """Intersection with the plane through the vertex with unit normal n."""
+    num = -(o[..., 0] * n[0] + o[..., 1] * n[1] + o[..., 2] * n[2])
+    den = s[..., 0] * n[0] + s[..., 1] * n[1] + s[..., 2] * n[2]
+    ok = den != 0
+    t = num / torch.where(ok, den, 1.0)
     return torch.where(ok, t, INF)
 
 
@@ -179,6 +232,53 @@ def hit_conic(o, s, rho, k, z_min_rel, z_max_rel):
     ok_p = ok_p & (lo <= z_pol) & (z_pol <= hi)
     t = torch.where(ok_p, t_pol, t)
     return t, valid
+
+
+def hit_newton(sag_fn, o, s, z_min_rel, z_max_rel, iters: int = 40):
+    """Bracketed bisection/false-position hybrid for general sag surfaces.
+
+    F(t) = oz + t·sz − sag(ox+t·sx, oy+t·sy), root bracketed in
+    [t(z_min−ε), t(z_max+ε)]. Each of the fixed ``iters`` steps takes the
+    Illinois false-position estimate, safeguarded by bisection when it
+    leaves the bracket. 40 iterations shrink any mm-scale bracket below
+    C_EPS. The divisions by sz are deliberately unguarded: inf/nan flow
+    into ``valid = False``.
+
+    Returns (t, valid, ill): ill flags brackets without a sign change.
+    """
+    ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
+    sx, sy, sz = s[..., 0], s[..., 1], s[..., 2]
+
+    def F(t):
+        return oz + t * sz - sag_fn(ox + t * sx, oy + t * sy)
+
+    eps = C_EPS / 10.0
+    t1 = (z_min_rel - eps - oz) / sz
+    t1 = torch.clamp(t1, min=-C_EPS)       # can't move backwards
+    t2 = (z_max_rel + eps - oz) / sz
+
+    f1 = F(t1)
+    f2 = F(t2)
+    ill = f1 * f2 > 0.0
+
+    for _ in range(iters):
+        # Illinois secant estimate, safeguarded into the bracket interior
+        df = f2 - f1
+        denom = torch.where(torch.abs(df) > N_EPS, df, 1.0)
+        ts = t1 - f1 / denom * (t2 - t1)
+        mid = 0.5 * (t1 + t2)
+        inside = (ts > torch.minimum(t1, t2)) & (ts < torch.maximum(t1, t2))
+        ts = torch.where(inside, ts, mid)
+        fs = F(ts)
+        # keep the sub-bracket containing the sign change; Illinois
+        # contraction m=0.5 on the end that stays
+        use_left = f1 * fs <= 0.0
+        t1, f1, t2, f2 = (torch.where(use_left, t1, ts), torch.where(use_left, 0.5 * f1, fs),
+                          torch.where(use_left, ts, t2), torch.where(use_left, fs, 0.5 * f2))
+
+    t = 0.5 * (t1 + t2)
+    valid = torch.isfinite(t) & ~ill
+    return t, valid, ill
 
 
 ADVANCE_STANDOFF = 1.0   # mm of free flight kept before the surface

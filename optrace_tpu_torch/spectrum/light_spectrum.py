@@ -2,8 +2,7 @@
 
 Counterpart of ``optrace_tpu/spectrum/light_spectrum.py``:
 ``random_wavelengths(gen, N)`` takes an explicit ``torch.Generator`` and
-samples on the generator's device. The colour metrics (``xyz``, ``color``,
-dominant/complementary wavelength) arrive with the colour-conversion slice.
+samples on the generator's device.
 """
 
 import math
@@ -121,6 +120,36 @@ class LightSpectrum(Spectrum):
         return super().__call__(wl)
 
     # ------------------------------------------------------------------
+    def xyz(self) -> np.ndarray:
+        """XYZ tristimulus of the spectrum."""
+        st = self.spectrum_type
+        if st == "Monochromatic":
+            wl = np.array([self.wl])
+            spec = np.array([self.val])
+        elif st == "Lines":
+            pc.check_type("LightSpectrum.lines", self.lines, (np.ndarray, list))
+            pc.check_type("LightSpectrum.line_vals", self.line_vals, (np.ndarray, list))
+            wl, spec = self.lines, self.line_vals
+        else:
+            cnt = 10000 if st in ("Function", "Data", "Histogram") else 4000
+            wl = color.wavelengths(cnt)
+            spec = self(wl)
+        return color.xyz_from_spectrum(wl, spec).numpy()
+
+    def color(self, rendering_intent: str = "Ignore", clip: bool = False,
+              L_th: float = 0.0, chroma_scale: float = None):
+        """sRGB color of the spectrum."""
+        XYZ = self.xyz()[None, None, :]
+        RGB = color.xyz_to_srgb(XYZ, rendering_intent=rendering_intent, clip=clip, L_th=L_th,
+                                chroma_scale=chroma_scale)[0, 0]
+        return float(RGB[0]), float(RGB[1]), float(RGB[2])
+
+    def dominant_wavelength(self) -> float:
+        return float(color.dominant_wavelength(self.xyz()))
+
+    def complementary_wavelength(self) -> float:
+        return float(color.complementary_wavelength(self.xyz()))
+
     def centroid_wavelength(self) -> float:
         """Power-weighted average wavelength."""
         st = self.spectrum_type

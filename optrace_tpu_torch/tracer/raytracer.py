@@ -5,10 +5,12 @@ sampled collision detection and the sequential trace with INFOS warning
 counters. The trace runs eagerly on one device (``device=None`` is the CUDA
 device; the CPU only on request), rays are generated on that device from a
 ``torch.Generator``, and the stored sections come back as host numpy arrays
-in :class:`RayStorage`.
+in :class:`RayStorage`. ``detector_image`` searches the stored f64
+sections for the detector hits on the same device and bins them into a
+:class:`RenderImage`.
 
-Not ported yet (see ROADMAP): ``detector_image``/``source_image`` and the
-spectra, ``iterative_render``/``render_huge``, ``focus_search``.
+Not ported yet (see ROADMAP): ``detector_spectrum``, ``source_image`` and
+``source_spectrum``, ``iterative_render``/``render_huge``, ``focus_search``.
 """
 
 from enum import IntEnum
@@ -17,11 +19,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from .detector import detector_hits, build_segment_mask
 from .ray_storage import RayStorage
 from .scene_compile import compile_surface
 from .trace_core import TraceStep, trace_bundle
-from ..geometry import (Group, Lens, Aperture, Surface, RingSurface,
-                        RectangularSurface, Point, Line)
+from ..geometry import (Group, Lens, Aperture, Detector, Surface, RingSurface, SlitSurface,
+                        SphericalSurface, RectangularSurface, Point, Line)
+from ..image.render_image import RenderImage
 from ..spectrum.refraction_index import RefractionIndex
 from ..utils.device import resolve_device
 from ..utils.property_checker import PropertyChecker as pc
@@ -266,7 +270,8 @@ class Raytracer(Group):
                                        n1_fn=el.n, n2_fn=n2, pos_host=ph(el.back)))
                 n_before = n2
             elif isinstance(el, Aperture):
-                kind = "ring" if isinstance(el.front, RingSurface) else ""
+                kind = "ring" if isinstance(el.front, RingSurface) \
+                    else ("slit" if isinstance(el.front, SlitSurface) else "")
                 steps.append(TraceStep(compile_surface(el.front, device, dtype), "absorb",
                                        hurb=bool(kind), hurb_kind=kind,
                                        pos_host=ph(el.front)))
@@ -380,3 +385,97 @@ class Raytracer(Group):
             bounds.append((float(surf.z_min), float(surf.z_max)))
         bounds.append((float(self.outline[5]), float(self.outline[5])))
         return bounds
+
+    # ------------------------------------------------------------------
+    # detector hit search over the stored sections
+
+    def _hit_detector(self, info: str, detector_index: int = 0, source_index: int = None,
+                      extent=None, projection_method: str = "Equidistant"):
+        if not self.detectors:
+            raise RuntimeError("Detector Missing")
+        if not self.rays.N:
+            raise RuntimeError("No rays traced.")
+        if source_index is not None and (source_index > len(self.ray_sources) - 1 or source_index < 0):
+            raise IndexError("Invalid source_index.")
+        if detector_index > len(self.detectors) - 1 or detector_index < 0:
+            raise IndexError("Invalid detector_index.")
+        if not self.check_if_rays_are_current():
+            raise RuntimeError("Tracing geometry/properties changed. Please retrace first.")
+
+        bar = ProgressBar(f"{info}: ", 2)
+        Ns, Ne = self.rays.B_list[source_index:source_index + 2] if source_index is not None \
+            else (0, self.rays.N)
+
+        dsurf = self.detectors[detector_index].surface
+        det_zmin = float(dsurf.z_min)
+        wl = np.asarray(self.rays.wl_list[Ns:Ne])
+        seg_mask = build_segment_mask(self._section_z_bounds(), det_zmin, float(dsurf.z_max))
+
+        # the stored sections are f64: keep that precision through the hit
+        # solve, on the raytracer's device (a once-per-image step; the
+        # fused streaming render never comes through here and stays f32)
+        with torch.no_grad():
+            sfns = compile_surface(dsurf, self.device, dtype=torch.float64)
+            p_all = torch.as_tensor(np.asarray(self.rays.p_list[Ns:Ne], dtype=np.float64),
+                                    device=self.device)
+            w_all = torch.as_tensor(np.asarray(self.rays.w_list[Ns:Ne], dtype=np.float64),
+                                    device=self.device)
+            ph, w, ish, n_ill = (t.cpu().numpy() for t in detector_hits(
+                sfns, det_zmin, p_all, w_all, segment_mask=seg_mask))
+        bar.update()
+
+        hitw = ish & (w > 0)
+        ph, w, wl = ph[hitw].astype(np.float64), w[hitw], wl[hitw]
+        ill_count = int(n_ill)
+
+        if isinstance(dsurf, SphericalSurface) and projection_method is not None:
+            ph = dsurf.sphere_projection(ph, projection_method)
+            projection = projection_method
+        else:
+            projection = None
+
+        if isinstance(extent, (list, np.ndarray)):
+            inside = (extent[0] <= ph[:, 0]) & (ph[:, 0] <= extent[1]) \
+                & (extent[2] <= ph[:, 1]) & (ph[:, 1] <= extent[3])
+            extent_out = np.asarray(np.array(extent).copy(), dtype=np.float64)
+            pc.check_finite("extent", extent_out)
+            ph, w, wl = ph[inside], w[inside], wl[inside]
+        elif extent is None:
+            extent_out = self.detectors[detector_index].pos[:2].repeat(2)
+            if np.any(hitw):
+                extent_out[[0, 2]] = np.min(ph[:, :2], axis=0)
+                extent_out[[1, 3]] = np.max(ph[:, :2], axis=0)
+        else:
+            raise ValueError(f"Invalid extent '{extent}'.")
+
+        return ph, w, wl, extent_out, projection, bar, ill_count
+
+    # ------------------------------------------------------------------
+    # image rendering
+
+    def detector_image(self, detector_index: int = 0, source_index: int = None,
+                       extent=None, limit: float = None,
+                       projection_method: str = "Equidistant", **kwargs) -> RenderImage:
+        """Render the detector image from the stored trace. The hit search
+        and the binning run on the raytracer's device."""
+        if limit is not None and extent is not None and "_dont_filter" not in kwargs:
+            warning("Using the limit parameter with a user defined extent will produce an "
+                    "incorrect detector image, as rays outside the extent are not convolved.")
+
+        p, w, wl, extent_out, projection, bar, ill_count = \
+            self._hit_detector("Detector Image", detector_index, source_index, extent, projection_method)
+
+        detector = self.detectors[detector_index]
+        pname = f": {detector.desc}" if detector.desc != "" else ""
+        desc = f"{Detector.abbr}{detector_index}{pname} at z = {detector.pos[2]:.5g} mm"
+        if source_index is not None:
+            desc = f"Rays from RS{source_index} at " + desc
+
+        img = RenderImage(long_desc=desc, extent=extent_out, projection=projection)
+        img.render(p, w, wl, limit=limit, device=self.device, **kwargs)
+        bar.finish()
+
+        if ill_count:
+            warning(f"{ill_count} rays ({100 * ill_count / self.rays.N:.3g}% of all rays) were "
+                    f"ill-conditioned for hit finding at detector {detector_index}.")
+        return img

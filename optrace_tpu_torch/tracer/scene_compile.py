@@ -9,9 +9,11 @@ which keeps the plain trace differentiable w.r.t. the optical design.
 ``host`` carries the same quantities as python floats: the run kernel's
 step table is built from them without a device round trip.
 
-Ported surface kinds: slit-less planar shapes (``rect``, ``ring``,
-``circle``) and ``conic`` (spheres included). A surface class that is not
-ported cannot be constructed, so nothing is ever substituted silently.
+Ported surface kinds: the planar shapes (``rect``, ``slit``, ``ring``,
+``circle``), ``conic`` (spheres included), ``asphere`` (even asphere) and
+``tilted`` (tilted plane). A surface class that is not ported (function and
+data surfaces) cannot be constructed, so nothing is ever substituted
+silently.
 """
 
 from typing import Callable, NamedTuple
@@ -21,7 +23,8 @@ import torch
 
 from ..ops import geom
 from ..geometry.surface import (Surface, CircularSurface, RingSurface, ConicSurface,
-                                RectangularSurface)
+                                AsphericSurface, TiltedSurface,
+                                RectangularSurface, SlitSurface)
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -79,12 +82,43 @@ def _conic_normal_fn(params, x, y):
     return geom.normal_conic(x, y, params["rho"], params["k"])
 
 
+def _asph_coeffs(params):
+    return [params["coeff"][i] for i in range(params["coeff"].shape[0])]
+
+
+def _asph_hit_fn(params, o, s):
+    def sag(x, y):
+        return geom.sag_asphere(x, y, params["rho"], params["k"], _asph_coeffs(params))
+    return geom.hit_newton(sag, o, s, params["z_min_rel"], params["z_max_rel"])
+
+
+def _asph_normal_fn(params, x, y):
+    return geom.normal_asphere(x, y, params["rho"], params["k"], _asph_coeffs(params))
+
+
+def _tilt_hit_fn(params, o, s):
+    # unguarded division, unlike geom.hit_tilted: den = 0 flows into
+    # valid = False as it does in the run kernel's tilted step
+    n = params["normal"]
+    num = -(o[..., 0] * n[0] + o[..., 1] * n[1] + o[..., 2] * n[2])
+    den = s[..., 0] * n[0] + s[..., 1] * n[1] + s[..., 2] * n[2]
+    t = num / den
+    valid = torch.isfinite(t) & (den != 0)
+    return t, valid, torch.zeros(t.shape, dtype=torch.bool, device=t.device)
+
+
+def _tilt_normal_fn(params, x, y):
+    return params["normal"].expand(*x.shape, 3)
+
+
 _KIND_FNS = {
     "slit": (_flat_hit_fn, _flat_normal_fn, _mask_slit_fn, True),
     "rect": (_flat_hit_fn, _flat_normal_fn, _mask_rect_fn, True),
     "ring": (_flat_hit_fn, _flat_normal_fn, _mask_ring_fn, True),
     "circle": (_flat_hit_fn, _flat_normal_fn, _mask_circle_fn, True),
     "conic": (_conic_hit_fn, _conic_normal_fn, _mask_circle_fn, False),
+    "asphere": (_asph_hit_fn, _asph_normal_fn, _mask_circle_fn, False),
+    "tilted": (_tilt_hit_fn, _tilt_normal_fn, _mask_circle_fn, False),
 }
 
 
@@ -94,8 +128,7 @@ def surface_fns(kind: str, params_np: dict, device, dtype=torch.float32) -> Surf
     numbers."""
     if kind not in _KIND_FNS:
         raise NotImplementedError(
-            f"surface kind '{kind}' is not ported yet (ROADMAP: asphere and tilted "
-            "step kinds, generic surfaces)")
+            f"surface kind '{kind}' is not ported yet (ROADMAP: generic surfaces)")
     npdt = _NP_DTYPES[dtype]
     host = {k: np.asarray(v, dtype=npdt) for k, v in params_np.items()}
     params = {k: torch.tensor(v, device=device) for k, v in host.items()}
@@ -113,14 +146,23 @@ def compile_surface(surf: Surface, device, dtype=torch.float32) -> SurfaceFns:
             "z_max_rel": surf.z_max - surf.pos[2],
             "z_min_rel": surf.z_min - surf.pos[2]}
 
+    if isinstance(surf, SlitSurface):
+        return surface_fns("slit", dict(base, hw=surf.dim[0] / 2, hh=surf.dim[1] / 2,
+                                        hwi=surf.dimi[0] / 2, hhi=surf.dimi[1] / 2,
+                                        angle=surf._angle), device, dtype)
     if isinstance(surf, RectangularSurface):
         return surface_fns("rect", dict(base, hw=surf.dim[0] / 2, hh=surf.dim[1] / 2,
                                         angle=surf._angle), device, dtype)
     if isinstance(surf, RingSurface):
         return surface_fns("ring", dict(base, r=surf.r, ri=surf.ri), device, dtype)
+    if isinstance(surf, AsphericSurface):
+        return surface_fns("asphere", dict(base, r=surf.r, rho=1.0 / surf.R, k=surf.k,
+                                           coeff=surf.coeff), device, dtype)
     if isinstance(surf, ConicSurface):   # includes SphericalSurface
         return surface_fns("conic", dict(base, r=surf.r, rho=1.0 / surf.R, k=surf.k),
                            device, dtype)
+    if isinstance(surf, TiltedSurface):
+        return surface_fns("tilted", dict(base, r=surf.r, normal=surf.normal), device, dtype)
     if isinstance(surf, CircularSurface):
         return surface_fns("circle", dict(base, r=surf.r), device, dtype)
     raise NotImplementedError(f"surface type {type(surf).__name__} is not ported yet")
@@ -131,7 +173,8 @@ def steps_from_numpy(spec: list, device, dtype=torch.float32) -> list:
 
     ``spec`` holds one dict per step: ``kind`` (surface kind), ``action``,
     ``pos_host`` (f64 vertex position), ``params`` (dict of numpy values:
-    ``pos, rho, k, r, ri, hw, hh, z_min_rel, z_max_rel, …``) and, for
+    ``pos, rho, k, r, ri, hw, hh, hwi, hhi, angle, coeff, normal, z_min_rel,
+    z_max_rel``, whichever the kind has) and, for
     refract steps, ``n1``/``n2`` as ``RefractionIndex`` constructor keyword
     dicts (``n_type`` plus ``coeff`` or ``n, V, lines``). Two steps that
     share a medium give the same dict object, or equal dicts: equal media

@@ -12,11 +12,17 @@ Physics per step:
 - outline-box escape absorption
 - "Broken sequentiality" / miss / ill-conditioned bookkeeping (INFOS)
 
-Runs of consecutive conic/flat refractions go to
+Runs of consecutive steps go to
 :func:`optrace_tpu_torch.ops.cuda_run.conic_run`: the hand-written CUDA
 kernel on a CUDA device, its plain PyTorch version on the CPU, in f64 and
-when a gradient is needed. Ideal lenses, filters and HURB edge diffraction
-are not ported yet and raise ``NotImplementedError``.
+when a gradient is needed. A run holds refractions on flat discs, conics
+and even aspheres, and with ``global_options.cuda_fuse_planar`` also
+refractions on tilted planes and the aperture absorbers between them;
+:func:`_run_step` is the one predicate that decides. The plain version runs
+every kind that the kernel runs, so a run that must take the plain version
+keeps its partition: nothing here re-partitions a run at dispatch. Ideal
+lenses, filters and HURB edge diffraction are not ported yet and raise
+``NotImplementedError``.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import geom
-from ..ops.cuda_run import conic_run, conic_run_reference, RUN_KINDS
+from ..ops.cuda_run import conic_run, conic_run_reference, ABSORB_KINDS
 from ..ops.vector import rdot, cross, normalize_safe
 from .scene_compile import SurfaceFns
 
@@ -160,11 +166,11 @@ def _refract_core(n, n1, n2, s, w, pols, hit, no_pol):
 
 
 # ----------------------------------------------------------------------
-# runs: consecutive conic/flat refractions collapse into ONE call of
-# ops.cuda_run.conic_run (one kernel launch on a CUDA device). Heterogeneous
-# steps (apertures, surfaces of a kind the kernel does not hold) and steps
-# consumed by a streaming sink stay unrolled; real systems are dominated by
-# conic runs.
+# runs: consecutive steps that the run kernel holds collapse into ONE call
+# of ops.cuda_run.conic_run (one kernel launch on a CUDA device). Steps of
+# another kind (generic surfaces, apertures with HURB), the cheap planar
+# steps unless cuda_fuse_planar asks for them, and steps consumed by a
+# streaming sink stay unrolled; real systems are dominated by conic runs.
 
 MIN_RUN = 4     # shortest run worth a launch of its own
 
@@ -195,19 +201,34 @@ def _frame_chain(steps, dtype):
     return chain
 
 
-def _run_step(st: TraceStep) -> bool:
-    """THE predicate for what a run may hold: refract steps on a surface
-    kind the run kernel has. Every other step (apertures, and kinds that
-    are not ported yet) stays unrolled — or cannot be built at all."""
-    return st.action == "refract" and st.sfns.kind in RUN_KINDS
+def _run_step(st: TraceStep, use_hurb: bool = False) -> bool:
+    """THE predicate for what a run may hold; every decision about the
+    partition goes through it. Refractions on flat discs, conics and even
+    aspheres always join a run (the unrolled asphere step is 40 iterations
+    of eager tensor operations). The cheap planar steps, refractions on
+    tilted planes and aperture absorbers without HURB, join only when
+    ``global_options.cuda_fuse_planar`` is set. Every other step stays
+    unrolled."""
+    from ..utils.global_options import global_options
+    kind = st.sfns.kind
+    if st.action == "refract":
+        if kind in ("conic", "circle", "flat", "asphere"):
+            return True
+        return kind == "tilted" and global_options.cuda_fuse_planar
+    if st.action == "absorb":
+        return (global_options.cuda_fuse_planar and kind in ABSORB_KINDS
+                and not (use_hurb and st.hurb))
+    return False
 
 
-def _partition_runs(steps, sink_masks):
+def _partition_runs(steps, sink_masks, use_hurb: bool = False):
     """Split the step list into per-step segments and runs
     (("step", [i]) / ("run", [i..j]) entries). A step whose segment a sink
-    consumes is never part of a run."""
+    consumes is never part of a run. Absorbers earn their place only
+    INSIDE a run, where they join two groups of refractions into one
+    launch; at the edges of a run they are trimmed back out."""
     def runnable(i):
-        if not _run_step(steps[i]):
+        if not _run_step(steps[i], use_hurb):
             return False
         for m in sink_masks:
             if m is None or (i < len(m) and m[i]):
@@ -221,10 +242,16 @@ def _partition_runs(steps, sink_masks):
             while j < len(steps) and runnable(j):
                 j += 1
             idxs = list(range(i, j))
+            while idxs and steps[idxs[0]].action == "absorb":
+                runs.append(("step", [idxs.pop(0)]))
+            tail = []
+            while idxs and steps[idxs[-1]].action == "absorb":
+                tail.append(("step", [idxs.pop()]))
             if len(idxs) >= MIN_RUN:
                 runs.append(("run", idxs))
             else:
                 runs.extend(("step", [k]) for k in idxs)
+            runs.extend(reversed(tail))
             i = j
             continue
         runs.append(("step", [i]))
@@ -232,9 +259,23 @@ def _partition_runs(steps, sink_masks):
     return runs
 
 
-def _media_rows(steps, run_idxs):
+def _ambient_chain(steps, n0_fn):
+    """Per step, the ambient medium fn a ray is in when REACHING it (the
+    n2 chain of the preceding refract steps; absorbers leave the ambient
+    unchanged): the n that an absorber's stored section reports."""
+    out, cur = [], n0_fn
+    for st in steps:
+        out.append(cur)
+        if st.action in ("refract", "ideal"):
+            cur = st.n2_fn
+    return out
+
+
+def _media_rows(steps, run_idxs, amb_fn_at=None):
     """Unique media (by object identity) across all steps of the runs.
-    Returns (media_fns, pairs) with pairs[step_idx] = (n1_row, n2_row)."""
+    Returns (media_fns, pairs) with pairs[step_idx] = (n1_row, n2_row);
+    an absorb step maps both rows to the ambient medium around it, which
+    the kernel never reads and the stored ``n`` section reports."""
     media, rows, pairs = [], {}, {}
 
     def row(fn):
@@ -245,7 +286,11 @@ def _media_rows(steps, run_idxs):
         return rows[k]
 
     for i in run_idxs:
-        pairs[i] = (row(steps[i].n1_fn), row(steps[i].n2_fn))
+        if steps[i].action == "absorb":
+            r = row(amb_fn_at[i])
+            pairs[i] = (r, r)
+        else:
+            pairs[i] = (row(steps[i].n1_fn), row(steps[i].n2_fn))
     return media, pairs
 
 
@@ -270,28 +315,50 @@ def _run_steps(steps, idxs, chain, outline64):
     for i in idxs:
         st = steps[i]
         h = st.sfns.host
+        kind = st.sfns.kind
         pos_h, delta, origin = chain[i]
-        out.append(dict(
-            kind=st.sfns.kind, is_flat=bool(st.sfns.is_flat),
+        c = dict(
+            kind=kind, is_flat=bool(st.sfns.is_flat), action=st.action,
             rho=float(h.get("rho", 1.0)), k=float(h.get("k", 0.0)),
             r=float(h.get("r", 1.0)),
             z_min=float(h.get("z_min_rel", 0.0)), z_max=float(h.get("z_max_rel", 0.0)),
             dx=float(delta[0]), dy=float(delta[1]), dz=float(delta[2]),
             ox=float(origin[0]), oy=float(origin[1]), oz=float(origin[2]),
-            out=tuple(float(outline64[q] - origin[q // 2]) for q in range(6))))
+            out=tuple(float(outline64[q] - origin[q // 2]) for q in range(6)))
+        if kind == "asphere":
+            c["coeff"] = tuple(float(v) for v in np.atleast_1d(h["coeff"]))
+        elif kind == "tilted":
+            c["tn"] = tuple(float(v) for v in h["normal"])
+        if st.action == "absorb":
+            # aperture-mask shape of a fused absorber ("circle" otherwise)
+            c["mask"] = kind if kind in ("ring", "rect", "slit") else "circle"
+            c.update({key: float(h[key]) for key in ("ri", "hw", "hh", "hwi", "hhi", "angle")
+                      if key in h})
+        out.append(c)
     return out
 
 
-def _run_differentiable_steps(steps, idxs, consts):
+def _run_differentiable_steps(steps, idxs, chain, consts):
     """For the gradient path: put the surface parameters that require a
     gradient back into the constant dicts as tensors, so that the plain
     loop differentiates through them."""
     for c, i in zip(consts, idxs):
         pr = steps[i].sfns.params
         for key, name in (("rho", "rho"), ("k", "k"), ("r", "r"),
-                          ("z_min", "z_min_rel"), ("z_max", "z_max_rel")):
+                          ("z_min", "z_min_rel"), ("z_max", "z_max_rel"),
+                          ("ri", "ri"), ("hw", "hw"), ("hh", "hh"), ("hwi", "hwi"),
+                          ("hhi", "hhi"), ("angle", "angle")):
             if name in pr and pr[name].requires_grad:
                 c[key] = pr[name]
+        if "coeff" in c and pr["coeff"].requires_grad:
+            c["coeff"] = tuple(pr["coeff"][q] for q in range(len(c["coeff"])))
+        if "tn" in c and pr["normal"].requires_grad:
+            c["tn"] = tuple(pr["normal"][q] for q in range(3))
+        if pr["pos"].requires_grad:
+            # residual between the parameter tensor and the static position
+            # (exactly 0 in the forward pass), as in the unrolled step
+            c["dpos"] = pr["pos"] - torch.as_tensor(chain[i][0], dtype=pr["pos"].dtype,
+                                                    device=pr["pos"].device)
     return consts
 
 
@@ -304,7 +371,7 @@ def _conic_run_dispatch(steps, idxs, chain, outline64, n_tab, pairs,
     med_idx = [pairs[i] for i in idxs]
     pol_in = None if no_pol else pols
     if _run_needs_plain(steps, idxs, p, s, w, pols, n_tab, no_pol):
-        consts = _run_differentiable_steps(steps, idxs, consts)
+        consts = _run_differentiable_steps(steps, idxs, chain, consts)
         fn = conic_run_reference
     else:
         fn = conic_run
@@ -379,13 +446,13 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
     # f32 position rounding stays O(eps·(gap+aperture)) instead of
     # O(eps·|z_absolute|) — see TraceStep.pos_host
     chain = _frame_chain(steps, np_dtype)
-    runs = _partition_runs(steps, [m for _, _, m in sink_list])
+    runs = _partition_runs(steps, [m for _, _, m in sink_list], use_hurb)
 
     # shared media table for the runs: one (M, N) row per unique medium
     run_idxs_all = [i for kind, idxs in runs if kind == "run" for i in idxs]
     n_tab = None
     if run_idxs_all:
-        media, pairs = _media_rows(steps, run_idxs_all)
+        media, pairs = _media_rows(steps, run_idxs_all, _ambient_chain(steps, n0_fn))
         n_tab = torch.stack([m(wl) for m in media])
 
     n_amb_last = sections_n[-1]

@@ -5,7 +5,8 @@ progress-bar/warning toggles, dark mode for plots, spectral colormap hook,
 and context managers. The port's own flags are ``cuda_trace`` and
 ``cuda_binning``, which route the trace runs and the detector binning
 through the hand-written CUDA kernels when the tensors lie on a CUDA
-device.
+device, and ``cuda_fuse_planar``, which lets a run hold tilted planes and
+aperture absorbers.
 """
 
 import contextlib
@@ -26,6 +27,7 @@ class _GlobalOptions:
         # an atomic histogram is the natural form of the binning on a GPU
         self._cuda_binning: bool = True
         self._cuda_trace: bool = True
+        self._cuda_fuse_planar: bool = False
 
     # ------------------------------------------------------------------
     @property
@@ -136,6 +138,24 @@ class _GlobalOptions:
     def cuda_trace(self, val: bool) -> None:
         self._check_bool("cuda_trace", val)
         self._cuda_trace = val
+
+    @property
+    def cuda_fuse_planar(self) -> bool:
+        """Let a trace run hold the cheap planar steps too: refractions on
+        tilted planes, and aperture absorbers (circle, ring, rectangle,
+        slit) without edge diffraction that lie between two refractions of
+        the run. A system with a stop between its lens groups then traces
+        in one run instead of two runs around an unrolled step. Counterpart
+        of ``pallas_fuse_planar``. Even aspheres join a run whatever this
+        flag says. The default is the setting that ``chip_smoke.py``
+        measured as the faster one for a render batch of the double Gauss
+        on an H100, and off where the two tie (PERF.md, Findings)."""
+        return self._cuda_fuse_planar
+
+    @cuda_fuse_planar.setter
+    def cuda_fuse_planar(self, val: bool) -> None:
+        self._check_bool("cuda_fuse_planar", val)
+        self._cuda_fuse_planar = val
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -15,11 +15,19 @@ import torch
 import optrace_tpu_torch as otp
 from optrace_tpu_torch.ops.cuda_run import conic_run
 from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
+from optrace_tpu_torch.ops.cuda_trace import conic_step
 from optrace_tpu_torch.presets.geometry import double_gauss
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "optrace_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                  ROOT / "tools" / "profile_port.py"]
+PORT_FILES = sorted((ROOT / "optrace_tpu_torch").rglob("*.py")) \
+    + sorted((ROOT / "optrace_tpu_torch" / "csrc").glob("*.cu*")) \
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_port.py"]
+# the glob must reach the kernels, colour and image modules too
+for _new in ("ops/cuda_trace.py", "csrc/trace_step.cuh", "csrc/conic_step.cu", "color/xyz.py", "color/luv.py",
+             "color/srgb.py", "image/render_image.py", "image/base_image.py", "image/rgb_image.py",
+             "geometry/surface/aspheric_surface.py", "geometry/surface/tilted_surface.py",
+             "geometry/surface/slit_surface.py"):
+    assert ROOT / "optrace_tpu_torch" / _new in PORT_FILES, _new
 
 
 def test_import_leaves_no_jax_behind():
@@ -77,15 +85,20 @@ def test_cpu_only_on_request():
 def test_wrappers_on_cpu_count_no_launch():
     """The trace and the render on the CPU go through the wrappers' plain
     versions: the launch counters stay where they were."""
-    before = (conic_run.launches, bin_xyzw_cuda.launches)
+    before = (conic_run.launches, bin_xyzw_cuda.launches, conic_step.launches)
     RT = _cpu_raytracer(no_pol=True)
     with otp.global_options.no_warnings(), otp.global_options.no_progress_bar():
         RT.trace(2000)
         render, _ = otp.make_fused_render(RT, 2000, extent=[-2, 2, -2, 2], Nx=16, Ny=16,
                                           device="cpu")
         img = render(otp.make_generator(0, "cpu"))
+        rimg = RT.detector_image(extent=[-2, 2, -2, 2])
     assert img.shape == (16, 16, 4) and float(img[..., 3].sum()) > 0
-    assert (conic_run.launches, bin_xyzw_cuda.launches) == before
+    assert rimg.power() > 0
+    x = torch.zeros((4, 3))
+    conic_step(x, x + torch.tensor([0.0, 0.0, 1.0]), torch.ones(4), torch.ones(4), torch.ones(4) * 1.5,
+               rho=0.05, k=0.0, z_min_rel=0.0, z_max_rel=0.3, r_ap=3.0)
+    assert (conic_run.launches, bin_xyzw_cuda.launches, conic_step.launches) == before
 
 
 def test_flags_and_unported_parts_raise():
@@ -93,9 +106,14 @@ def test_flags_and_unported_parts_raise():
     ported raise and name the ROADMAP instead of returning something."""
     go = otp.global_options
     assert go.cuda_trace is True and go.cuda_binning is True
+    # fusing the planar steps was a tie on the card (PERF.md): off, as in the JAX package
+    assert go.cuda_fuse_planar is False
     assert not hasattr(go, "pallas_trace") and not hasattr(go, "pallas_binning")
+    assert not hasattr(go, "pallas_fuse_planar")
     with pytest.raises(TypeError):
         go.cuda_binning = 1
+    with pytest.raises(TypeError):
+        go.cuda_fuse_planar = "on"
     RT = _cpu_raytracer(use_hurb=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"), go.no_warnings(), go.no_progress_bar():
         RT.trace(100)
@@ -113,3 +131,8 @@ def test_wrappers_launch_on_the_card():
     x = torch.zeros(8, device="cuda")
     bin_xyzw_cuda(x, x, x + 1, x + 550, 4, 4, (-1.0, 1.0, -1.0, 1.0))
     assert bin_xyzw_cuda.launches == before + 1
+    before = conic_step.launches
+    p = torch.zeros((8, 3), device="cuda")
+    s = p + torch.tensor([0.0, 0.0, 1.0], device="cuda")
+    conic_step(p, s, x + 1, x + 1, x + 1.5, rho=0.05, k=0.0, z_min_rel=0.0, z_max_rel=0.3, r_ap=3.0)
+    assert conic_step.launches == before + 1

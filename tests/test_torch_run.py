@@ -256,7 +256,10 @@ def test_trace_bundle_keeps_gradients_through_a_run():
 
 def test_wrapper_on_cpu_and_unported_kinds():
     """On CPU tensors the wrapper takes the plain version and counts no
-    launch; a step kind that is not ported makes both versions raise."""
+    launch; a step kind that the run kernel does not hold (a generic
+    surface, a refraction on an aperture shape, an absorber on a curved
+    surface) makes both versions raise, and an asphere without
+    coefficients is refused."""
     p, s, w = (torch.from_numpy(a) for a in _radial_bundle())
     n_tab = torch.stack([torch.ones(64), torch.full((64,), 1.5)])
     before = conic_run.launches
@@ -264,9 +267,15 @@ def test_wrapper_on_cpu_and_unported_kinds():
     b = conic_run_reference(p, s, w, n_tab, [(0, 1)], [_const()], store=False)
     assert conic_run.launches == before
     assert torch.equal(a[0][0], b[0][0]) and torch.equal(a[1][0], b[1][0])
-    for kind in ("asphere", "tilted", "ring"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            conic_run(p, s, w, n_tab, [(0, 1)], [_const(kind=kind)])
+    for fn in (conic_run, conic_run_reference):
+        for bad in (dict(kind="generic"), dict(kind="ring"), dict(kind="slit"),
+                    dict(kind="conic", action="absorb"), dict(kind="asphere", action="absorb")):
+            with pytest.raises(NotImplementedError, match="not ported"):
+                fn(p, s, w, n_tab, [(0, 1)], [_const(**bad)])
+        with pytest.raises(ValueError, match="coefficient"):
+            fn(p, s, w, n_tab, [(0, 1)], [_const(kind="asphere")])
+        for good in (dict(kind="asphere", coeff=(1e-4,)), dict(kind="tilted", tn=(0.0, 0.1, 0.995))):
+            assert torch.isfinite(fn(p, s, w, n_tab, [(0, 1)], [_const(**good)])[0][0]).all()
 
 
 def test_step_table_layout():
