@@ -8,10 +8,11 @@ against its plain PyTorch version on the card, renders the double-Gauss
 objective (Nikkor-Wakamiya 100 mm f/1.4) with the fused streaming render at
 10⁶ rays a batch into a 945 × 945 × 4 image, runs the stored trace, traces
 an asphere stack and carries its stored trace through ``detector_image`` to
-an sRGB image, drives the planar step kinds (tilted plate, ring, rectangle,
-slit) in one run, measures the render with ``cuda_fuse_planar`` off and on,
-probes the single-step kernel, and checks that every path went through its
-kernels (launch counters). Every phase prints one JSON line; the last line is
+an sRGB image, bins two hot pixels on a spread background and a ragged ray
+count through ``RenderImage.render``, drives the planar step kinds (tilted
+plate, ring, rectangle, slit) in one run, measures the render with
+``cuda_fuse_planar`` off and on, probes the single-step kernel, and checks
+that every path went through its kernels (launch counters). Every phase prints one JSON line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure exits with a non-zero code. Without a CUDA device the script
 fails at once: nothing here runs on the CPU.
@@ -192,10 +193,10 @@ def capture_run_calls(RT, N, store, seed):
     calls = []
     real = trace_core.conic_run
 
-    def recorder(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
+    def recorder(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None):
         calls.append(dict(p=p, s=s, w=w, n_tab=n_tab, med_idx=med_idx, steps=steps,
-                          pol=pol, store=store))
-        return real(p, s, w, n_tab, med_idx, steps, pol=pol, store=store)
+                          pol=pol, store=store, plan=plan))
+        return real(p, s, w, n_tab, med_idx, steps, pol=pol, store=store, plan=plan)
 
     RT.rays.init(RT.ray_sources, N, len(RT.tracing_surfaces) + 2, RT.no_pol)
     steps = RT._build_steps()
@@ -212,16 +213,19 @@ def capture_run_calls(RT, N, store, seed):
     return calls
 
 
-def compare_run(c, label):
+def compare_run(c, label, poisoned=False):
     """Kernel and plain version on one recorded call: errors, flips and
     counts. Raises on disagreement. Returns the comparison and the plain
-    version's stored weights (None for a call that stores nothing)."""
+    version's stored weights (None for a call that stores nothing). A
+    difference counts NaN against NaN and inf against the same inf as 0, and
+    NaN or inf against anything else as inf; only a call with ``poisoned``
+    rays may put out a value that is not finite."""
     import torch
     from optrace_tpu_torch.ops.cuda_run import conic_run, conic_run_reference
 
     args = (c["p"], c["s"], c["w"], c["n_tab"], c["med_idx"], c["steps"])
     kw = dict(pol=c["pol"], store=c["store"])
-    (pk, sk, wk, qk), (ck, ypk, ywk, yqk) = conic_run(*args, **kw)
+    (pk, sk, wk, qk), (ck, ypk, ywk, yqk) = conic_run(*args, plan=c["plan"], **kw)
     (pr, sr, wr, qr), (cr, ypr, ywr, yqr) = conic_run_reference(*args, **kw)
     torch.cuda.synchronize()
 
@@ -231,7 +235,9 @@ def compare_run(c, label):
     keep = ~flipped
 
     def err(a, b):
-        d = (a[keep] - b[keep]).abs()
+        a, b = a[keep], b[keep]
+        d = (a - b).abs()
+        d = torch.where((a == b) | (a.isnan() & b.isnan()), 0.0, torch.where(d.isnan(), float("inf"), d))
         return float(d.max()) if d.numel() else 0.0
 
     def rel_w(a, b, m):
@@ -252,7 +258,7 @@ def compare_run(c, label):
     assert max(e_state, e_sec) <= TOL_P, f"{label}: position/direction error {e_state} {e_sec}"
     assert e_w <= TOL_W_REL, f"{label}: weight error {e_w}"
     assert e_pol <= TOL_POL, f"{label}: polarization error {e_pol}"
-    assert torch.isfinite(pk).all() and torch.isfinite(wk).all()
+    assert torch.isfinite(wk).all() and (poisoned or torch.isfinite(pk).all())
     return dict(flips=flips, e_state=e_state, e_w=e_w, e_pol=e_pol, e_sec=e_sec,
                 counts_equal=d_counts == 0, counts=ck.sum(dim=0).tolist()), ywr
 
@@ -292,8 +298,8 @@ def check_run_calls(calls, label, plain_reps=3):
         res["counts_equal"] = res["counts_equal"] and cmp_["counts_equal"]
         res["counts"] = [a + b for a, b in zip(res["counts"], cmp_["counts"])]
 
-        res["ms"] += device_kernel_ms(lambda: conic_run(*args, **kw), "conic_run_kernel")
-        res["ms_between_events"] += cuda_ms(lambda: conic_run(*args, **kw))
+        res["ms"] += device_kernel_ms(lambda: conic_run(*args, plan=c["plan"], **kw), "conic_run_kernel")
+        res["ms_between_events"] += cuda_ms(lambda: conic_run(*args, plan=c["plan"], **kw))
         res["plain_ms"] += cuda_ms(lambda: conic_run_reference(*args, **kw), reps=plain_reps,
                                    warmup=1 if plain_reps > 1 else 0)
 
@@ -322,10 +328,13 @@ def check_run_calls(calls, label, plain_reps=3):
     return res
 
 
-def stress_run_call(c, label, spread, tilt, seed):
+def stress_run_call(c, label, spread, tilt, seed, poison=False):
     """The recorded call with its rays spread out and tilted, so that rays
     miss apertures, leave z-ranges and give brackets without a sign change:
-    kernel against plain version, all four counters."""
+    kernel against plain version, all four counters. ``poison`` also gives
+    three rays in every 1000 a direction with sz = 0, a NaN position and an
+    infinite position: brackets that never settle, so their warps run the
+    asphere solve to its last iteration."""
     import torch
     g = torch.Generator(device=c["p"].device)
     g.manual_seed(seed)
@@ -334,15 +343,22 @@ def stress_run_call(c, label, spread, tilt, seed):
     s = c["s"].clone()
     s[:, :2] = s[:, :2] + tilt * (torch.rand(s[:, :2].shape, generator=g, device=s.device) * 2 - 1)
     s = s / torch.linalg.norm(s, dim=-1, keepdim=True)
-    cmp_, _ = compare_run(dict(c, p=p, s=s), label)
+    if poison:
+        s[0::1000] = torch.tensor([1.0, 0.0, 0.0], device=s.device)
+        p[1::1000, 2] = float("nan")
+        p[2::1000, 0] = float("inf")
+    cmp_, _ = compare_run(dict(c, p=p, s=s), label, poisoned=poison)
     return dict(name=label, flips=cmp_["flips"], counts_equal=cmp_["counts_equal"],
+                poisoned_rays=3 * len(range(0, p.shape[0], 1000)) if poison else 0,
                 counts_miss_tir_outline_ill=cmp_["counts"],
                 max_abs_err=max(cmp_["e_state"], cmp_["e_sec"], cmp_["e_pol"]))
 
 
 def check_binning(px, py, w, wl, extent, label, Nx=NX, Ny=NY):
     """Binning kernel against its plain version and the library yardstick
-    (one index_add_ on precomputed keys and values)."""
+    (one index_add_ on precomputed keys and values, which leaves out the
+    index, the mask and the observer lookup that the kernel does). ``ms`` and
+    ``library_ms`` are device times of the kernels alone, by the profiler."""
     import torch
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda, bin_xyzw_reference
     from optrace_tpu_torch.ops.binning import binning_indices_2d
@@ -378,8 +394,10 @@ def check_binning(px, py, w, wl, extent, label, Nx=NX, Ny=NY):
     ms_events = cuda_ms(lambda: bin_xyzw_cuda(px, py, w, wl, Nx, Ny, extent))
     plain_ms = cuda_ms(lambda: bin_xyzw_reference(px, py, w, wl, Nx, Ny, extent))
 
+    # the yardstick's own kernel time, as the kernel's: no launch gap in either
     out = torch.zeros((Ny * Nx, 4), dtype=torch.float32, device=px.device)
-    library_ms = cuda_ms(lambda: out.index_add_(0, keys, vals))
+    library_ms = device_kernel_ms(lambda: out.index_add_(0, keys, vals), "ndex")
+    library_ms_events = cuda_ms(lambda: out.index_add_(0, keys, vals))
 
     N = px.shape[0]
     nbytes = 16 * N + 16 * Nx * Ny
@@ -390,7 +408,7 @@ def check_binning(px, py, w, wl, extent, label, Nx=NX, Ny=NY):
                 rays_in_fullest_pixel=rays_in_a_pixel, tolerance=tol, tolerance_plain=tol_plain,
                 rays_binned=int((wm != 0).sum()), ms=ms, ms_between_events=ms_events,
                 plain_ms=plain_ms, library_ms=library_ms,
-                bytes=nbytes, bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                library_ms_between_events=library_ms_events, bytes=nbytes, bound_ms=max(bound_bytes_ms, bound_ops_ms),
                 bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations")
 
 
@@ -481,15 +499,18 @@ def device_kernel_ms(fn, name, calls=10):
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = n = 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and name in ev.key:
-            us += ev.self_device_time_total
-            n += ev.count
+    for attempt in range(3):        # a trace now and then comes back without its device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = n = 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and name in ev.key:
+                us += ev.self_device_time_total
+                n += ev.count
+        if n > 0:
+            break
     assert n > 0, f"the profiler recorded no kernel named {name}"
     return us / 1e3 / n
 
@@ -652,6 +673,44 @@ def main():
     # ---- after it they are read ----------------------------------------
     launches = {}       # kernel label -> launches on its path
 
+    # ---- 2b. binning inputs that take the kernel's other ways, through -----
+    # ---- RenderImage.render --------------------------------------------
+    # two hot pixels on a spread background (a warp's votes are never "one
+    # pixel": the partner search and the accumulators carry the hot pixels),
+    # and a ray count that is no multiple of a vote's 32 rays, of a warp's 128
+    # or of a block, on inputs that start 4 bytes off a 16-byte boundary
+    g = ot.make_generator(19)
+    ext_b = [-43.265, 43.265, -43.265, 43.265]
+    n_tail = N_RAYS - 17
+    xs, ys = ((torch.rand(N_RAYS + 1, generator=g, device=dev) * 2 - 1) * 1.1 * ext_b[1] for _ in range(2))
+    pick = torch.rand(N_RAYS + 1, generator=g, device=dev)
+    xs = torch.where(pick < 0.25, 3.2101, torch.where(pick < 0.5, -17.7303, xs))
+    ys = torch.where(pick < 0.25, -8.4102, torch.where(pick < 0.5, 21.0304, ys))
+    ws = torch.rand(N_RAYS + 1, generator=g, device=dev)
+    wls = 380.0 + 400.0 * torch.rand(N_RAYS + 1, generator=g, device=dev)
+    bin_paths = {}
+    for label, sl in (("bin_xyzw@two_hot", slice(0, N_RAYS)), ("bin_xyzw@tail", slice(1, 1 + n_tail))):
+        hits = torch.stack([xs[sl], ys[sl], torch.zeros_like(xs[sl])], dim=-1)
+        rimg_b = ot.RenderImage(extent=ext_b)
+        reset_counts()
+        with BinRecorder(render_image_mod) as rec:
+            rimg_b.render(hits, ws[sl], wls[sl])
+        assert bin_xyzw_cuda.launches == 1 and len(rec.calls) == 1
+        launches[label] = bin_xyzw_cuda.launches
+        _, _, _, _, Nx_b, Ny_b, ext_r = rec.calls[0]
+        # the kernel itself on the sliced inputs (the tail's lie off a 16-byte boundary)
+        assert (xs[sl].data_ptr() % 16 == 0) == (label == "bin_xyzw@two_hot")
+        bin_paths[label] = check_binning(xs[sl], ys[sl], ws[sl], wls[sl], ext_r, label, Nx=Nx_b, Ny=Ny_b)
+        # what the entry point holds is the kernel's image
+        power_b = float(ws[sl][(xs[sl].abs() <= ext_b[1]) & (ys[sl].abs() <= ext_b[1])].double().sum())
+        assert abs(rimg_b.power() - power_b) <= 1e-5 * power_b, (rimg_b.power(), power_b)
+        del hits, rimg_b, rec
+    assert bin_paths["bin_xyzw@two_hot"]["rays_in_fullest_pixel"] > N_RAYS // 5
+    assert bin_paths["bin_xyzw@tail"]["N"] == n_tail and n_tail % 32 and n_tail % 128
+    emit(dict(phase="binning_inputs", gpu=smi, entry="RenderImage.render",
+              inputs=list(bin_paths.values())))
+    del xs, ys, ws, wls, pick
+
     # ---- 3. fused render ------------------------------------------------
     RT = double_gauss_scene(ot, no_pol=True)
     render, extent = ot.make_fused_render(RT, N_RAYS, Nx=NX, Ny=NY)     # default device
@@ -762,6 +821,10 @@ def main():
     stress = stress_run_call(asph_calls[0], "conic_run[nopol,store]@asphere20,stress",
                              spread=2.6, tilt=0.25, seed=16)
     assert stress["counts_miss_tir_outline_ill"][0] > 1000 and stress["counts_miss_tir_outline_ill"][3] > 0, stress
+    # the same with rays whose bracket never settles (sz = 0, NaN, inf)
+    stress_nan = stress_run_call(asph_calls[0], "conic_run[nopol,store]@asphere20,stress+nan",
+                                 spread=2.6, tilt=0.25, seed=16, poison=True)
+    assert stress_nan["poisoned_rays"] >= 3 * (N_RAYS // 1000) and stress_nan["max_abs_err"] == 0.0, stress_nan
     del asph_calls
     torch.cuda.empty_cache()
 
@@ -829,7 +892,8 @@ def main():
     launches["conic_run[nopol,nostore]@asphere20"] = conic_run.launches
     del RTd
     emit(dict(phase="asphere", gpu=smi, scene="asphere_stack", N=N_RAYS, runs=[20],
-              kernels=list(asph.values()), stress=stress, bin_detector_image=bin_image,
+              kernels=list(asph.values()), stress=stress, stress_never_settling=stress_nan,
+              bin_detector_image=bin_image,
               path=dict(entry="Raytracer.trace -> detector_image -> get('sRGB (Absolute RI)')",
                         launches=dict(conic_run=launches["conic_run[nopol,store]@asphere20"],
                                       bin_xyzw=launches["bin_xyzw@detector_image"]),
@@ -1006,6 +1070,7 @@ def main():
     rows.update({k + "@planar61": v for k, v in planar.items()})
     rows.update({k + "@dg15": v for k, v in dg_fused.items()})
     rows["bin_xyzw@detector_image"] = bin_image
+    rows.update(bin_paths)
     rows["conic_step"] = step_res
     sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
                "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),

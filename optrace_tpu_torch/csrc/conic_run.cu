@@ -5,7 +5,8 @@
 // (step body _one_step, outline kill _outline_block). It computes the same
 // step (trace_step.cuh): frame shift, standoff advance, hit solve by kind
 // (plane; conic Citardauq root pair + one guarded Newton polish; even asphere
-// by a 40-iteration Illinois bracketed solve; tilted plane with a constant
+// by an Illinois bracketed solve of 40 iterations, left early once no later
+// iteration can change the result; tilted plane with a constant
 // normal), abnormal-hit clamp, then either aperture mask, miss kill, normal,
 // Snell + Fresnel (no-pol A² = ½, or s/p polarization transport) and TIR
 // kill, or the absorb mask of a fused aperture (circle, ring, rectangle,
@@ -21,24 +22,39 @@
 // reads each medium value once per use instead of a gathered (L, 2, N) copy
 // (an absorb step reads none); counts are reduced with
 // __ballot_sync/__popc per warp and one integer atomicAdd per warp, step and
-// non-zero counter (exact at any N). The kernel is instantiated twice over
-// the step kinds: a run of flat and conic refractions alone (most runs of
-// most lens systems) takes the instantiation without the asphere solve, the
-// tilted plane and the absorb masks, which needs fewer registers; measured at
-// 56 steps it is about 9 % faster than the one that holds every kind.
+// non-zero counter (exact at any N); sections leave with streaming stores,
+// since the kernel never reads one back. The kernel is instantiated twice
+// over the step kinds: a run of flat and conic refractions alone (most runs
+// of most lens systems) takes the instantiation without the asphere solve,
+// the tilted plane and the absorb masks, which needs fewer registers (40 to
+// 48 against 51 to 60) and is about 9 % faster at 56 steps.
 //
-// Bound: per ray the kernel must move 28 B in + 28 B out of state (40 + 40
-// with pol), 4·M B of media (M: the rows of n_tab that the run's steps name,
-// not all the table holds) and, when sections are stored, 16 B (28 B with
-// pol) per step; a flat, conic or tilted step is on the order of 150 f32
-// operations per ray, among them 2 square roots and about 8 divisions, an
-// asphere step about 1700 (42 evaluations of the sag, each a square root, a
-// division and a Horner polynomial, and 40 bracket updates), an absorb step
-// about 60. At N = 10⁶, L = 56 conic steps with stored sections that is about
-// 0.9 GB against about 8 GFLOP, so on an H100 (3.35 TB/s, 67 TFLOP/s f32) the
-// memory side is the tighter bound by far; the no-store form moves under
-// 0.1 GB and is bound by its operations, and so is a run of asphere steps
-// even with stored sections.
+// Bound by the table of peaks: per ray the kernel must move 28 B in + 28 B
+// out of state (40 + 40 with pol), 4·M B of media (M: the rows of n_tab that
+// the run's steps name, not all the table holds) and, when sections are
+// stored, 16 B (28 B with pol) per step; a flat, conic or tilted step is on
+// the order of 150 f32 operations per ray, an asphere step about 1700 as it
+// is defined (42 evaluations of the sag, each a square root, a division and a
+// Horner polynomial, and 40 bracket updates; the kernel does about a third
+// of them, see trace_step.cuh), an absorb step about 60. At N = 10⁶, L = 56
+// conic steps with stored sections that is about 0.9 GB against about
+// 8 GFLOP, so on an H100 (3.35 TB/s, 67 TFLOP/s f32) the memory side is the
+// tighter bound; the no-store form moves under 0.1 GB and is bound by its
+// operations, and so is a run of asphere steps even with stored sections.
+//
+// What bounds it on the card is neither: it is the rate at which an SM issues
+// instructions. The arithmetic contract below makes every division and square
+// root the IEEE sequence (a reciprocal estimate, Newton steps and a residual
+// correction: about a dozen instructions each) and splits every multiply-add,
+// so a conic step is about 470 instructions a ray for its 150 operations, and
+// at 56 steps and 10⁶ rays the measured time is what 132 SMs need to issue
+// them at four warp-instructions a clock. More warps in flight, other launch
+// bounds or a step table in the constant bank instead of shared memory (tried:
+// the compiler turns the uniform loads into indexed LDC one for one, no
+// gain) cannot help; fewer instructions can, and within the contract
+// those are the ones whose result no bit depends on (trace_step.cuh). Tensor
+// cores, TMA and clusters have nothing to offer: there is no matrix product,
+// and no tile that two threads share.
 //
 // Arithmetic contract: every operation is a separate IEEE f32 add, mul, div
 // or sqrt in the order of the plain PyTorch version
@@ -50,7 +66,7 @@
 #include "trace_step.cuh"
 
 template <bool POL, bool STORE, bool ALL_KINDS>
-__global__ void conic_run_kernel(
+__global__ void __launch_bounds__(256) conic_run_kernel(
     const float* __restrict__ p_in, const float* __restrict__ s_in,
     const float* __restrict__ w_in, const float* __restrict__ pol_in,
     const float* __restrict__ n_tab, const int* __restrict__ table_g,
@@ -98,7 +114,9 @@ __global__ void conic_run_kernel(
 
         // a dead ray takes only the frame shift: every update of the step
         // is masked by hw, hit (⊂ hw) or w > 0
-        if (r.w > 0.f) {
+        const bool alive = r.w > 0.f;
+        const unsigned lanes = __ballot_sync(0xffffffffu, alive);
+        if (alive) {
             float n1 = 1.f, n2 = 1.f;
             if (!ALL_KINDS || c.action == ACT_REFRACT) {
                 // an absorb step reads no medium and leaves the cached row
@@ -107,7 +125,7 @@ __global__ void conic_run_kernel(
                 last_row = c.n2_row;
                 last_n = n2;
             }
-            trace_step<POL, true, ALL_KINDS>(c, coef, n1, n2, r, f);
+            trace_step<POL, true, ALL_KINDS>(c, coef, lanes, n1, n2, r, f);
         }
 
         // per-step counts: one ballot per counter, one atomic per warp
@@ -124,16 +142,17 @@ __global__ void conic_run_kernel(
 
         if (STORE && active) {
             // sections are absolute; the carried state stays in the
-            // surface's frame
+            // surface's frame. The kernel never reads a section back:
+            // streaming stores keep them from evicting the media rows
             const size_t row = (size_t)j * N + i;
-            ys_p[3 * row] = r.px + c.ox;
-            ys_p[3 * row + 1] = r.py + c.oy;
-            ys_p[3 * row + 2] = r.pz + c.oz;
-            ys_w[row] = r.w;
+            __stcs(ys_p + 3 * row, r.px + c.ox);
+            __stcs(ys_p + 3 * row + 1, r.py + c.oy);
+            __stcs(ys_p + 3 * row + 2, r.pz + c.oz);
+            __stcs(ys_w + row, r.w);
             if (POL) {
-                ys_pol[3 * row] = r.qx;
-                ys_pol[3 * row + 1] = r.qy;
-                ys_pol[3 * row + 2] = r.qz;
+                __stcs(ys_pol + 3 * row, r.qx);
+                __stcs(ys_pol + 3 * row + 1, r.qy);
+                __stcs(ys_pol + 3 * row + 2, r.qz);
             }
         }
     }

@@ -46,7 +46,7 @@ __global__ void conic_step_kernel(
     // hw or hit (⊂ hw)
     if (r.w > 0.f) {
         StepFlags f;
-        trace_step<false, false, false>(c, nullptr, n1_in[i], n2_in[i], r, f);
+        trace_step<false, false, false>(c, nullptr, 0u, n1_in[i], n2_in[i], r, f);
     }
 
     p_out[3 * i] = r.px; p_out[3 * i + 1] = r.py; p_out[3 * i + 2] = r.pz;

@@ -27,6 +27,36 @@
 // solves are deliberately unguarded, and inf/NaN flow into `valid = false`
 // through isfinite and ordered comparisons. min/max/clamp propagate NaN as
 // the tensor versions do (fminf/fmaxf would drop it).
+//
+// What a step costs on an H100 is its instruction count, not its bytes: the
+// state is in registers and the constants are warp-uniform. So the design
+// removes instructions whose result no output bit depends on, and nothing
+// else:
+//   - The asphere's bracketed solve is defined as ASPH_ITERS iterations (the
+//     plain version runs them all). The kernel leaves the loop as soon as
+//     every ray of the warp has a SETTLED bracket: t1 and t2 finite, below
+//     1e38 in size, and equal or neighbouring floats. From then on the
+//     result cannot change. No float lies strictly between t1 and t2, so the
+//     secant point is never "inside" and ts = mid = ½(t1 + t2), which rounds
+//     to one of the two, call it m (t1 + t2 cannot overflow below 1e38, and
+//     halving is exact or, for denormals, rounds onto t1 or t2). The update
+//     keeps one end and replaces the other by m: the bracket either stays as
+//     it is or collapses onto (m, m), and ½(m + m) = m. Every later
+//     iteration is of the same form, so the ½(t1 + t2) after 40 iterations
+//     is the ½(t1 + t2) of the moment the bracket settled, bit for bit. Only
+//     f1 and f2 go on changing (the Illinois halving), and nothing after the
+//     loop reads them. A ray whose bracket is inf or NaN never settles, so
+//     its warp runs all 40 iterations: right by construction, only slower.
+//     On the front surface of an R = 60, k = −0.8 asphere a ray's bracket
+//     settles after about 5 iterations in the mean and the last of a warp's
+//     32 after about 18 (tests/test_torch_asphere_exit.py counts them).
+//   - The polynomial's coefficients are loaded once a step into registers
+//     (up to 8; longer ones are read in a loop), zero-padded at the high
+//     end: Horner starts from 0, and 0·r² + 0 = 0 for every r² that is not
+//     inf or NaN, for which the first true term gives NaN as well.
+//   - Two of the conic step's IEEE divisions feed values that almost no ray
+//     uses (the linear root when |A| ≤ 1e-10, the z_max clamp of an abnormal
+//     hit); each sits behind the branch that selects it.
 
 #pragma once
 
@@ -91,11 +121,41 @@ __device__ __forceinline__ float clamp_p(float x, float lo, float hi) {
     return (x != x) ? x : fminf(fmaxf(x, lo), hi);
 }
 
+// The polynomial of an even asphere in r². NC > 0: the coefficients in NC
+// registers, zero-padded above n (the header says why that changes no bit);
+// NC = 0: any length, read from the coefficient region at every evaluation.
+template <int NC>
+struct AsphPoly {
+    float c[NC > 0 ? NC : 1];
+    const float* p;
+    int n;
+
+    __device__ __forceinline__ void load(const float* src, int n_cf) {
+        p = src;
+        n = n_cf;
+#pragma unroll
+        for (int i = 0; i < NC; ++i) c[i] = (i < n_cf) ? src[i] : 0.f;
+    }
+
+    // Horner from the last coefficient, as the plain version's loop
+    __device__ __forceinline__ float eval(float r2) const {
+        float poly = 0.f;
+        if (NC > 0) {
+#pragma unroll
+            for (int i = NC - 1; i >= 0; --i) poly = poly * r2 + c[i];
+        } else {
+            for (int i = n - 1; i >= 0; --i) poly = poly * r2 + p[i];
+        }
+        return poly;
+    }
+};
+
 // F(t) = z(t) − sag(x(t), y(t)) of an even asphere: guarded square root,
-// Horner in r² from the last coefficient.
+// Horner in r².
+template <int NC>
 __device__ __forceinline__ float asph_F(
     float t, float px, float py, float pz, float sx, float sy, float sz,
-    float rho, float k1rr, const float* __restrict__ cf, int n_cf)
+    float rho, float k1rr, const AsphPoly<NC>& poly_cf)
 {
     const float x = px + t * sx;
     const float y = py + t * sy;
@@ -105,19 +165,69 @@ __device__ __forceinline__ float asph_F(
     float root = sqrtf(ok ? arg : 1.f);
     root = ok ? root : 0.f;
     const float z = rho * r2 / (1.f + root);
-    float poly = 0.f;
-    for (int i = n_cf - 1; i >= 0; --i) poly = poly * r2 + cf[i];
+    const float poly = poly_cf.eval(r2);
     return pz + t * sz - (z + poly * r2);
+}
+
+// Whether a bracket can no longer move the result: both ends finite and
+// below 1e38 in size, and equal or neighbouring floats (their bit patterns,
+// mapped to integers in the order of the floats, differ by at most 1; +0
+// and −0 map to the same integer).
+__device__ __forceinline__ bool asph_settled(float t1, float t2) {
+    int o1 = __float_as_int(t1), o2 = __float_as_int(t2);
+    o1 = (o1 < 0) ? (int)(0x80000000u - (unsigned)o1) : o1;
+    o2 = (o2 < 0) ? (int)(0x80000000u - (unsigned)o2) : o2;
+    const bool close = ((unsigned)o1 - (unsigned)o2 + 1u) <= 2u;
+    return (fabsf(t1) < 1e38f) && (fabsf(t2) < 1e38f) && close;
+}
+
+// Bracketed Illinois false position on F. Defined as ASPH_ITERS iterations;
+// leaves the loop once the bracket of every ray in `lanes` (the lanes of the
+// warp that run this step together) is settled, which changes no bit of t.
+template <int NC>
+__device__ __forceinline__ float asph_solve(
+    const Step& c, const float* __restrict__ cf, unsigned lanes,
+    float px, float py, float pz, float sx, float sy, float sz, bool& ill)
+{
+    AsphPoly<NC> poly;
+    poly.load(cf, c.n_coeff);
+    const float rho = -c.neg_rho;
+    const float k1rr = c.k1rr;
+    float t1 = max_p((c.zlo_b - pz) / sz, -C_EPS);
+    float t2 = (c.zhi_b - pz) / sz;
+    float f1 = asph_F<NC>(t1, px, py, pz, sx, sy, sz, rho, k1rr, poly);
+    float f2 = asph_F<NC>(t2, px, py, pz, sx, sy, sz, rho, k1rr, poly);
+    ill = (f1 * f2 > 0.f);
+#pragma unroll 1
+    for (int it = 0; it < ASPH_ITERS; ++it) {
+        const float df = f2 - f1;
+        const float denom = (fabsf(df) > N_EPS) ? df : 1.f;
+        float ts = t1 - f1 / denom * (t2 - t1);
+        const float mid = 0.5f * (t1 + t2);
+        const bool inside = (ts > min_p(t1, t2)) && (ts < max_p(t1, t2));
+        ts = inside ? ts : mid;
+        const float fs = asph_F<NC>(ts, px, py, pz, sx, sy, sz, rho, k1rr, poly);
+        const bool use_left = f1 * fs <= 0.f;
+        const float nt1 = use_left ? t1 : ts;
+        const float nf1 = use_left ? 0.5f * f1 : fs;
+        const float nt2 = use_left ? ts : t2;
+        const float nf2 = use_left ? fs : 0.5f * f2;
+        t1 = nt1; f1 = nf1; t2 = nt2; f2 = nf2;
+        if (__all_sync(lanes, asph_settled(t1, t2))) break;
+    }
+    return 0.5f * (t1 + t2);
 }
 
 // One step for a ray that is alive on entry (w > 0). For RUN the caller has
 // applied the frame shift already (dead rays take it too). `coef` is the
-// coefficient region of the step table (RUN) or unused. ALL_KINDS = false
+// coefficient region of the step table (RUN) or unused. `lanes` is the mask
+// of the lanes of this warp that make this call together (the rays alive on
+// entry): the asphere solve votes among them. ALL_KINDS = false
 // compiles the asphere, the tilted plane and the absorb action out: a run of
 // flat and conic refractions alone then takes fewer registers.
 template <bool POL, bool RUN, bool ALL_KINDS>
 __device__ __forceinline__ void trace_step(
-    const Step& c, const float* __restrict__ coef, float n1, float n2,
+    const Step& c, const float* __restrict__ coef, unsigned lanes, float n1, float n2,
     RayState& r, StepFlags& f)
 {
     float px = r.px, py = r.py, pz = r.pz, sx = r.sx, sy = r.sy, sz = r.sz, w = r.w;
@@ -150,33 +260,16 @@ __device__ __forceinline__ void trace_step(
         t = num / den;
         valid = isfinite(t) && (den != 0.f);
     } else if (ALL_KINDS && kind == KIND_ASPHERE) {
-        // bracketed Illinois false position, exactly ASPH_ITERS iterations:
-        // an early exit would change the halved f values
-        const float rho = -c.neg_rho;
+        // bracketed Illinois false position (asph_solve); the polynomial
+        // in 4 or 8 registers, or read in a loop when it is longer
         const float* cf = coef + c.coeff_off;
-        const int n_cf = c.n_coeff;
-        float t1 = max_p((c.zlo_b - pz) / sz, -C_EPS);
-        float t2 = (c.zhi_b - pz) / sz;
-        float f1 = asph_F(t1, px, py, pz, sx, sy, sz, rho, c.k1rr, cf, n_cf);
-        float f2 = asph_F(t2, px, py, pz, sx, sy, sz, rho, c.k1rr, cf, n_cf);
-        f.ill = (f1 * f2 > 0.f);
-#pragma unroll 1
-        for (int it = 0; it < ASPH_ITERS; ++it) {
-            const float df = f2 - f1;
-            const float denom = (fabsf(df) > N_EPS) ? df : 1.f;
-            float ts = t1 - f1 / denom * (t2 - t1);
-            const float mid = 0.5f * (t1 + t2);
-            const bool inside = (ts > min_p(t1, t2)) && (ts < max_p(t1, t2));
-            ts = inside ? ts : mid;
-            const float fs = asph_F(ts, px, py, pz, sx, sy, sz, rho, c.k1rr, cf, n_cf);
-            const bool use_left = f1 * fs <= 0.f;
-            const float nt1 = use_left ? t1 : ts;
-            const float nf1 = use_left ? 0.5f * f1 : fs;
-            const float nt2 = use_left ? ts : t2;
-            const float nf2 = use_left ? fs : 0.5f * f2;
-            t1 = nt1; f1 = nf1; t2 = nt2; f2 = nf2;
+        if (c.n_coeff <= 4) {
+            t = asph_solve<4>(c, cf, lanes, px, py, pz, sx, sy, sz, f.ill);
+        } else if (c.n_coeff <= 8) {
+            t = asph_solve<8>(c, cf, lanes, px, py, pz, sx, sy, sz, f.ill);
+        } else {
+            t = asph_solve<0>(c, cf, lanes, px, py, pz, sx, sy, sz, f.ill);
         }
-        t = 0.5f * (t1 + t2);
         valid = isfinite(t) && !f.ill;
     } else {
         // conic root: Citardauq pair + one guarded Newton polish
@@ -194,10 +287,13 @@ __device__ __forceinline__ void trace_step(
         const bool okB = fabsf(B) > N_EPS;
         float t1 = okA ? (q / (okA ? A : 1.f)) : INFINITY;
         float t2 = okq ? (C / (okq ? q : 1.f)) : INFINITY;
-        const float t_lin = -C / (2.f * (okB ? B : 1.f));
+        // the linear root: a division that only a ray with |A| <= N_EPS uses
         const bool lin = !okA && okB;
-        t1 = lin ? t_lin : t1;
-        t2 = lin ? t_lin : t2;
+        if (lin) {
+            const float t_lin = -C / (2.f * B);
+            t1 = t_lin;
+            t2 = t_lin;
+        }
 
         const float z1 = pz + sz * t1;
         const float z2 = pz + sz * t2;
@@ -229,9 +325,11 @@ __device__ __forceinline__ void trace_step(
     const bool beh = pz > c.hi;
     const bool neg = z_hit < pz - C_EPS;
     const bool bad = !valid || neg || !t_fin;
-    const bool sz_ok = sz != 0.f;
-    const float t_zmax = sz_ok ? ((c.z_max - pz) / (sz_ok ? sz : 1.f)) : 0.f;
-    t_safe = (bad && !beh) ? t_zmax : t_safe;
+    if (bad && !beh) {
+        // the z_max clamp: a division that only an abnormal hit uses
+        const bool sz_ok = sz != 0.f;
+        t_safe = sz_ok ? ((c.z_max - pz) / (sz_ok ? sz : 1.f)) : 0.f;
+    }
     t_safe = beh ? 0.f : t_safe;
     const bool ok = !(bad || beh);
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``optrace_tpu/ops/pallas_binning.py`` (``bin_xyzw_pallas``):
 the weighted 2-D histogram of (x̄·w, ȳ·w, z̄·w, w) behind the fused render.
-The kernel is one pass over the rays with f32 atomic adds (the source
-carries the design note and the bound). Its plain PyTorch version is
+The kernel is one pass over the rays that adds a pixel's four f32 values
+with one vector atomic, after summing what a warp and a block can sum on
+their own (the source carries the design note and the bound). Its plain PyTorch version is
 :func:`optrace_tpu_torch.ops.binning.bin_xyzw` (``index_add_``), re-exported
 here as :func:`bin_xyzw_reference`; the two differ by f32 summation order.
 """
@@ -56,6 +57,9 @@ def bin_xyzw_cuda(px, py, w, wl, Nx: int, Ny: int, extent, out=None):
     elif (out.device != dev or out.dtype != torch.float32 or tuple(out.shape) != (Ny, Nx, 4)
           or not out.is_contiguous()):
         raise ValueError(f"out must be a contiguous float32 ({Ny}, {Nx}, 4) tensor on {dev}")
+    if out.data_ptr() % 16:
+        raise ValueError("out must be 16-byte aligned: the binning kernel adds a pixel's "
+                         "four values with one vector atomic")
 
     x0, x1, y0, y1 = (float(v) for v in extent[:4])
     obs, wl0, wl1 = observer_table(dev, torch.float32)

@@ -24,7 +24,6 @@ versions raise.
 """
 
 import ctypes
-import functools
 import math
 
 import numpy as np
@@ -34,7 +33,8 @@ from .geom import N_EPS, C_EPS, ADVANCE_STANDOFF
 
 INV_SQRT2 = float(np.sqrt(0.5))
 INF = float("inf")
-ASPH_ITERS = 40      # iterations of the asphere's bracketed solve (no early exit)
+ASPH_ITERS = 40      # iterations of the asphere's bracketed solve (the plain version runs them
+#                      all; the kernel leaves the loop when no later iteration can change t)
 
 #: surface kinds a refract step of the run can hold (``scene_compile`` kind names)
 RUN_KINDS = ("conic", "circle", "flat", "asphere", "tilted")
@@ -97,6 +97,65 @@ def _asph_sag_F(t, px, py, pz, sx, sy, sz, rho, k, coeff):
     return pz + t * sz - (z + poly * r2)
 
 
+def _asph_settled(t1, t2):
+    """The kernel's exit rule for one bracket: both ends finite and below
+    1e38 in size, and equal or neighbouring floats. No later iteration can
+    then change ½(t1 + t2) (``csrc/trace_step.cuh`` has the argument)."""
+    close = (t1 == t2) | (torch.nextafter(t1, t2) == t2)
+    return close & (torch.abs(t1) < 1e38) & (torch.abs(t2) < 1e38)
+
+
+def _asph_solve(px, py, pz, sx, sy, sz, c, freeze=None):
+    """The asphere's hit parameter by bracketed Illinois false position:
+    the component form of geom.hit_newton, ASPH_ITERS fixed iterations;
+    the deliberately unguarded divisions by sz carry inf/nan into the
+    result. Returns (t, ill, iterations): ``ill`` says that the bracket
+    has no sign change.
+
+    ``freeze`` is for the study of the kernel's early exit and leaves the
+    plain version's arithmetic alone when it is None. "lane" stops
+    updating a lane's bracket as soon as it is settled
+    (:func:`_asph_settled`); "warp" stops a lane when all 32 consecutive
+    lanes of its group are settled, as the kernel's vote does.
+    ``iterations`` then counts the updates each lane took (ASPH_ITERS for a
+    lane that never settled), otherwise it is None."""
+    where = torch.where
+    rho, k, coeff = c["rho"], c["k"], c["coeff"]
+    eps_b = C_EPS / 10.0
+    t1 = torch.clamp((c["z_min"] - eps_b - pz) / sz, min=-C_EPS)
+    t2 = (c["z_max"] + eps_b - pz) / sz
+    f1 = _asph_sag_F(t1, px, py, pz, sx, sy, sz, rho, k, coeff)
+    f2 = _asph_sag_F(t2, px, py, pz, sx, sy, sz, rho, k, coeff)
+    ill = f1 * f2 > 0.0
+    iters = None if freeze is None else torch.zeros(t1.shape, dtype=torch.int32, device=t1.device)
+    done = None if freeze is None else torch.zeros_like(ill)
+    for _ in range(ASPH_ITERS):
+        df = f2 - f1
+        denom = where(torch.abs(df) > N_EPS, df, 1.0)
+        ts = t1 - f1 / denom * (t2 - t1)
+        mid = 0.5 * (t1 + t2)
+        inside = (ts > torch.minimum(t1, t2)) & (ts < torch.maximum(t1, t2))
+        ts = where(inside, ts, mid)
+        fs = _asph_sag_F(ts, px, py, pz, sx, sy, sz, rho, k, coeff)
+        use_left = f1 * fs <= 0.0
+        nt1, nf1, nt2, nf2 = (where(use_left, t1, ts), where(use_left, 0.5 * f1, fs),   # Illinois m=0.5
+                              where(use_left, ts, t2), where(use_left, fs, 0.5 * f2))
+        if freeze is None:
+            t1, f1, t2, f2 = nt1, nf1, nt2, nf2
+            continue
+        t1, f1, t2, f2 = (where(done, t1, nt1), where(done, f1, nf1),
+                          where(done, t2, nt2), where(done, f2, nf2))
+        iters = iters + (~done).to(torch.int32)
+        settled = _asph_settled(t1, t2)
+        if freeze == "warp":
+            n = settled.shape[0]
+            pad = torch.ones((-n) % 32, dtype=torch.bool, device=settled.device)
+            groups = torch.cat([settled, pad]).view(-1, 32).all(dim=1)
+            settled = groups.repeat_interleave(32)[:n]
+        done = done | settled
+    return 0.5 * (t1 + t2), ill, iters
+
+
 def _cos_sin(angle):
     if isinstance(angle, torch.Tensor):
         return torch.cos(angle), torch.sin(angle)
@@ -154,25 +213,8 @@ def _one_step(px, py, pz, sx, sy, sz, w, n1, n2, c, pol=None):
         # form of geom.hit_newton (ASPH_ITERS fixed iterations; the
         # deliberately unguarded divisions by sz carry inf/nan into
         # valid = False)
-        rho, k, coeff = c["rho"], c["k"], c["coeff"]
-        eps_b = C_EPS / 10.0
-        t1 = torch.clamp((c["z_min"] - eps_b - pz) / sz, min=-C_EPS)
-        t2 = (c["z_max"] + eps_b - pz) / sz
-        f1 = _asph_sag_F(t1, px, py, pz, sx, sy, sz, rho, k, coeff)
-        f2 = _asph_sag_F(t2, px, py, pz, sx, sy, sz, rho, k, coeff)
-        ill = (f1 * f2 > 0.0) & hw
-        for _ in range(ASPH_ITERS):
-            df = f2 - f1
-            denom = where(torch.abs(df) > N_EPS, df, 1.0)
-            ts = t1 - f1 / denom * (t2 - t1)
-            mid = 0.5 * (t1 + t2)
-            inside = (ts > torch.minimum(t1, t2)) & (ts < torch.maximum(t1, t2))
-            ts = where(inside, ts, mid)
-            fs = _asph_sag_F(ts, px, py, pz, sx, sy, sz, rho, k, coeff)
-            use_left = f1 * fs <= 0.0
-            t1, f1, t2, f2 = (where(use_left, t1, ts), where(use_left, 0.5 * f1, fs),   # Illinois m=0.5
-                              where(use_left, ts, t2), where(use_left, fs, 0.5 * f2))
-        t = 0.5 * (t1 + t2)
+        t, ill_raw, _ = _asph_solve(px, py, pz, sx, sy, sz, c)
+        ill = ill_raw & hw
         valid = torch.isfinite(t) & ~ill
     else:
         # --- conic root (geom.hit_conic: Citardauq + Newton polish) ----
@@ -486,12 +528,42 @@ def _table_bytes(steps, med_idx) -> bytes:
     return raw
 
 
-@functools.lru_cache(maxsize=64)
-def _device_table(raw: bytes, device) -> torch.Tensor:
-    """The step table on the device, copied once per distinct table: a
-    render calls the same runs batch after batch, and the copy from
-    pageable host memory would hold the host up at every launch."""
-    return torch.frombuffer(bytearray(raw), dtype=torch.float32).to(device)
+class PreparedRun:
+    """Everything of a run that does not depend on the rays: the checked
+    step dicts and media row pairs, the step table as the kernel reads it
+    (:func:`_table_bytes`), which instantiation of the kernel the run takes
+    and the tags for the launch counters; and, copied at the first launch on
+    a device, the table there.
+
+    The constants of a run depend on the compiled steps, the frame chain
+    and the outline, so a prepared run is good for as long as the step list
+    it was made from is the scene: whoever builds new steps
+    (``Raytracer._build_steps``, ``make_fused_render``) prepares anew
+    (``tracer/trace_core.py:RunPlans``)."""
+
+    def __init__(self, steps, med_idx):
+        _check_kinds(steps)
+        self.L = len(steps)
+        if not 0 < self.L <= MAX_RUN:
+            raise ValueError(f"a run holds 1 to {MAX_RUN} steps, got {self.L}")
+        if len(med_idx) != self.L:
+            raise ValueError("med_idx needs one (n1_row, n2_row) pair per step")
+        self.steps = list(steps)
+        self.med_idx = [(int(r1), int(r2)) for r1, r2 in med_idx]
+        self.rows = (min(min(p) for p in self.med_idx), max(max(p) for p in self.med_idx))
+        self.tags = frozenset(step_tag(c) for c in steps)
+        # a run of flat and conic refractions alone takes the instantiation
+        # of the kernel that holds no other step kind (fewer registers)
+        self.all_kinds = not self.tags <= {"conic", "flat"}
+        self.raw = _table_bytes(self.steps, self.med_idx)
+        self._tables = {}       # device -> the table there
+
+    def table(self, dev) -> torch.Tensor:
+        """The step table on ``dev``, copied there once."""
+        tab = self._tables.get(dev)
+        if tab is None:
+            tab = self._tables[dev] = torch.frombuffer(bytearray(self.raw), dtype=torch.float32).to(dev)
+        return tab
 
 
 def _lib():
@@ -521,7 +593,7 @@ def _check(name, t, shape, device):
                          "use conic_run_reference")
 
 
-def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
+def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None):
     """Run L consecutive trace steps for every ray.
 
     On CUDA tensors this launches the kernel (or raises); tensors on the
@@ -537,6 +609,9 @@ def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
         polarization transport
     :param store: also return per-step absolute positions and weights
         (and polarizations when ``pol`` is given)
+    :param plan: the :class:`PreparedRun` of ``steps`` and ``med_idx``, for
+        a caller that launches the same run again and again; without it the
+        run is prepared at every call
     :return: (p', s', w', pol'|None), (counts (L, 4) int32 rows of
         [miss, tir, outline, ill], ys_p (L, N, 3)|None, ys_w (L, N)|None,
         ys_pol (L, N, 3)|None)
@@ -546,30 +621,23 @@ def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
     if p.device.type != "cuda":
         raise ValueError(f"conic_run runs on CUDA or CPU tensors, not on {p.device}")
 
-    _check_kinds(steps)
-    L, N, dev = len(steps), p.shape[0], p.device
-    if not 0 < L <= MAX_RUN:
-        raise ValueError(f"a run holds 1 to {MAX_RUN} steps, got {L}")
-    if len(med_idx) != L:
-        raise ValueError("med_idx needs one (n1_row, n2_row) pair per step")
+    if plan is None:
+        plan = PreparedRun(steps, med_idx)
+    L, N, dev = plan.L, p.shape[0], p.device
     _check("p", p, (N, 3), dev)
     _check("s", s, (N, 3), dev)
     _check("w", w, (N,), dev)
     _check("n_tab", n_tab, (n_tab.shape[0], N), dev)
     if pol is not None:
         _check("pol", pol, (N, 3), dev)
-    M = n_tab.shape[0]
-    if any(not (0 <= r1 < M and 0 <= r2 < M) for r1, r2 in med_idx):
+    if not (0 <= plan.rows[0] and plan.rows[1] < n_tab.shape[0]):
         raise ValueError("med_idx row outside n_tab")
     p, s, w, n_tab = p.contiguous(), s.contiguous(), w.contiguous(), n_tab.contiguous()
     pol = pol.contiguous() if pol is not None else None
 
     lib = _lib()
-    # a run of flat and conic refractions alone takes the instantiation of
-    # the kernel that holds no other step kind (fewer registers)
-    tags = {step_tag(c) for c in steps}
     with torch.cuda.device(dev):
-        table = _device_table(_table_bytes(steps, med_idx), dev)
+        table = plan.table(dev)
         p2, s2, w2 = torch.empty_like(p), torch.empty_like(s), torch.empty_like(w)
         pol2 = torch.empty_like(pol) if pol is not None else None
         counts = torch.zeros((L, 4), dtype=torch.int32, device=dev)
@@ -587,14 +655,14 @@ def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
             ptr(p), ptr(s), ptr(w), ptr(pol), ptr(n_tab), ptr(table), L, table.numel(), N,
             ptr(p2), ptr(s2), ptr(w2), ptr(pol2), ptr(counts),
             ptr(ys_p), ptr(ys_w), ptr(ys_pol),
-            int(pol is not None), int(store), int(not tags <= {"conic", "flat"}),
+            int(pol is not None), int(store), int(plan.all_kinds),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conic_run kernel launch failed with CUDA error {rc}")
     conic_run.launches += 1
     variant = (pol is not None, bool(store))
     conic_run.variant_launches[variant] = conic_run.variant_launches.get(variant, 0) + 1
-    for tag in tags:
+    for tag in plan.tags:
         conic_run.kind_launches[tag] = conic_run.kind_launches.get(tag, 0) + 1
     return (p2, s2, w2, pol2), (counts, ys_p, ys_w, ys_pol)
 

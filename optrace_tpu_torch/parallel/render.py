@@ -13,7 +13,7 @@ import torch
 
 from ..geometry import SphericalSurface
 from ..tracer.scene_compile import compile_surface
-from ..tracer.trace_core import trace_bundle
+from ..tracer.trace_core import trace_bundle, RunPlans
 from ..tracer.detector import build_segment_mask, init_hit_carry, segment_update
 from ..ops import binning
 from ..ops.cuda_binning import bin_xyzw_cuda
@@ -77,6 +77,7 @@ def make_fused_render_multi(RT, N_batch: int, configs: list, device=None):
     device = resolve_device(device)
     RT.rays.init(RT.ray_sources, N_batch, len(RT.tracing_surfaces) + 2, RT.no_pol)
     steps = RT._build_steps(device)
+    plans = RunPlans(steps)     # the runs' step tables: built by the first batch, kept for the rest
     source_fn = RT._make_source_fn(N_batch)
     outline = tuple(float(v) for v in RT.outline)
     n0_fn = RT.n0
@@ -105,7 +106,7 @@ def make_fused_render_multi(RT, N_batch: int, configs: list, device=None):
         out = trace_bundle(steps, n0_fn, outline, p, s, pols, w, wl,
                            no_pol, use_hurb, gen=gen,
                            sinks=[(fn, init_hit_carry(N_batch, device), m) for fn, m in sinks],
-                           store_sections=False, hurb_factor=hurb_factor)
+                           store_sections=False, hurb_factor=hurb_factor, plans=plans)
         imgs = [fin(carry, out["wl"]) for fin, carry in zip(finalizers, out["sinks"])]
         return imgs, out["infos"]
 

@@ -22,7 +22,7 @@ import torch
 from .detector import detector_hits, build_segment_mask
 from .ray_storage import RayStorage
 from .scene_compile import compile_surface
-from .trace_core import TraceStep, trace_bundle
+from .trace_core import TraceStep, trace_bundle, RunPlans
 from ..geometry import (Group, Lens, Aperture, Detector, Surface, RingSurface, SlitSurface,
                         SphericalSurface, RectangularSurface, Point, Line)
 from ..image.render_image import RenderImage
@@ -62,6 +62,7 @@ class Raytracer(Group):
         self._ignore_geometry_error = False
         self.geometry_error = False
         self._last_trace_snapshot = None
+        self._compiled = None       # (elements, snapshot key, steps, RunPlans) of the last trace
         self.fault_pos = np.array([])
         self._seed_counter = 0
 
@@ -277,6 +278,25 @@ class Raytracer(Group):
                                        pos_host=ph(el.front)))
         return steps
 
+    def _trace_steps(self):
+        """The step list of :meth:`trace` and the prepared runs that go
+        with it (``trace_core.RunPlans``). Both are kept from one trace to
+        the next and built anew as soon as the scene differs: another
+        element object in the list, or another snapshot of the lenses,
+        apertures, outline, ambient medium or device (the change detector
+        that ``check_if_rays_are_current`` trusts). The kept elements stay
+        referenced, so no object that the snapshot names by identity can be
+        freed and replaced unnoticed."""
+        elements = self._tracing_elements()[:-1]    # the end absorber follows from the outline
+        snap = self.tracing_snapshot()
+        key = (snap["Lenses"], snap["Apertures"], snap["Ambient"], str(self.device))
+        kept = self._compiled
+        if (kept is None or kept[1] != key or len(kept[0]) != len(elements)
+                or any(a is not b for a, b in zip(kept[0], elements))):
+            steps = self._build_steps()
+            kept = self._compiled = (elements, key, steps, RunPlans(steps))
+        return kept[2], kept[3]
+
     def _make_source_fn(self, N: int):
         """Ray generation for all sources with static per-source counts:
         ``gen -> (p, s, pols, w, wl)`` on the generator's device."""
@@ -310,7 +330,7 @@ class Raytracer(Group):
         bar = ProgressBar("Raytracing: ", 3)
         self.rays.init(self.ray_sources, N, nt, self.no_pol, seed=self._seed_counter)
 
-        steps = self._build_steps()
+        steps, plans = self._trace_steps()
         source_fn = self._make_source_fn(N)
         bar.update()
 
@@ -321,7 +341,7 @@ class Raytracer(Group):
             p, s, pols, w, wl = source_fn(gen)
             out = trace_bundle(steps, self.n0, tuple(float(v) for v in self.outline),
                                p, s, pols, w, wl, self.no_pol, self.use_hurb, gen=gen,
-                               hurb_factor=float(self.HURB_FACTOR))
+                               hurb_factor=float(self.HURB_FACTOR), plans=plans)
         out = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
                for k, v in out.items() if k in ("p", "w", "pol", "n", "wl", "infos")}
         bar.update()

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import geom
-from ..ops.cuda_run import conic_run, conic_run_reference, ABSORB_KINDS
+from ..ops.cuda_run import conic_run, conic_run_reference, PreparedRun, ABSORB_KINDS
 from ..ops.vector import rdot, cross, normalize_safe
 from .scene_compile import SurfaceFns
 
@@ -362,21 +362,58 @@ def _run_differentiable_steps(steps, idxs, chain, consts):
     return consts
 
 
+class RunPlans:
+    """The prepared runs (``ops/cuda_run.py:PreparedRun``) of ONE step list.
+
+    The step table of a run depends on the compiled steps, the frame chain
+    and the outline, not on the rays, so it is built once where the runs
+    are partitioned and kept here for every later bundle. The rule that
+    makes a prepared run stale: new steps. Whoever builds a step list
+    (``Raytracer._build_steps``, ``make_fused_render``) makes a new
+    ``RunPlans`` with it; :func:`trace_bundle` refuses one that was made
+    for another list. The object holds its step list, so the identity that
+    it checks cannot pass to another list while it lives. Within one list a
+    plan is keyed by what else its constants depend on: the steps of the
+    run (the partition changes with the sinks and with
+    ``cuda_fuse_planar``), the media row pairs and the outline; the frame
+    chain is always the f32 one, since f64 state takes the plain loop."""
+
+    def __init__(self, steps):
+        self.steps = steps
+        self._plans = {}
+
+    def get(self, steps, idxs, chain, outline64, med_idx) -> PreparedRun:
+        if steps is not self.steps:
+            raise ValueError("these RunPlans were made for another step list: new steps need "
+                             "new plans")
+        key = (tuple(idxs), tuple(med_idx), tuple(float(v) for v in outline64))
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = PreparedRun(_run_steps(steps, idxs, chain, outline64), med_idx)
+        return plan
+
+    def __len__(self):
+        return len(self._plans)
+
+
 def _conic_run_dispatch(steps, idxs, chain, outline64, n_tab, pairs,
-                        p, s, w, pols, no_pol, store_sections):
-    """Build the per-step constants and media row pairs of one run, call
-    the run (kernel or plain loop) and shape its outputs for
-    :func:`trace_bundle`."""
-    consts = _run_steps(steps, idxs, chain, outline64)
+                        p, s, w, pols, no_pol, store_sections, plans):
+    """Call one run (kernel or plain loop) with its per-step constants and
+    media row pairs, and shape its outputs for :func:`trace_bundle`. The
+    kernel's run comes prepared from ``plans``; the gradient and f64 path
+    builds its constant dicts anew, since they may hold tensors."""
     med_idx = [pairs[i] for i in idxs]
     pol_in = None if no_pol else pols
     if _run_needs_plain(steps, idxs, p, s, w, pols, n_tab, no_pol):
+        consts = _run_steps(steps, idxs, chain, outline64)
         consts = _run_differentiable_steps(steps, idxs, chain, consts)
-        fn = conic_run_reference
+        (p2, s2, w2, pols2), (counts, ys_p, ys_w, ys_pol) = conic_run_reference(
+            p, s, w, n_tab, med_idx, consts, pol=pol_in, store=store_sections)
     else:
-        fn = conic_run
-    (p2, s2, w2, pols2), (counts, ys_p, ys_w, ys_pol) = fn(
-        p, s, w, n_tab, med_idx, consts, pol=pol_in, store=store_sections)
+        plan = plans.get(steps, idxs, chain, outline64, med_idx)
+        (p2, s2, w2, pols2), (counts, ys_p, ys_w, ys_pol) = conic_run(
+            p, s, w, n_tab, plan.med_idx, plan.steps, pol=pol_in, store=store_sections,
+            plan=plan)
     if no_pol:
         pols2 = pols
 
@@ -396,7 +433,7 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
                  p, s, pols, w, wl, no_pol: bool,
                  use_hurb: bool = False, gen=None,
                  sinks: list = None, store_sections: bool = True,
-                 hurb_factor: float = HURB_FACTOR):
+                 hurb_factor: float = HURB_FACTOR, plans: "RunPlans" = None):
     """Trace a ray bundle through the step list, on the device of ``p``.
 
     :param steps: list[TraceStep] including the implicit end absorber
@@ -416,6 +453,9 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         accumulated — the returned dict carries only the final ray state,
         wl, INFOS and the sink carries, keeping device memory at O(N)
         regardless of surface count (the megabatch render path).
+    :param plans: the :class:`RunPlans` of ``steps``, for a caller that
+        traces bundle after bundle through the same steps; without them the
+        runs are prepared anew at every call
     :return: dict with stacked per-section arrays p (N, nt, 3), w (N, nt),
              pol (N, nt, 3) or None, n (N, nt) (if store_sections) and the
              INFOS counter matrix (N_INFOS, nt) — nt = len(steps) + 1
@@ -447,6 +487,8 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
     # O(eps·|z_absolute|) — see TraceStep.pos_host
     chain = _frame_chain(steps, np_dtype)
     runs = _partition_runs(steps, [m for _, _, m in sink_list], use_hurb)
+    if plans is None:
+        plans = RunPlans(steps)
 
     # shared media table for the runs: one (M, N) row per unique medium
     run_idxs_all = [i for kind, idxs in runs if kind == "run" for i in idxs]
@@ -461,7 +503,7 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
             (p, s, w, pols, run_infos, run_p, run_w,
              run_pol) = _conic_run_dispatch(
                 steps, run_idxs, chain, outline64, n_tab, pairs,
-                p, s, w, pols, no_pol, store_sections)
+                p, s, w, pols, no_pol, store_sections, plans)
             L = len(run_idxs)
             infos.extend(run_infos[i] for i in range(L))
             if store_sections:

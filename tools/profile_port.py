@@ -10,14 +10,24 @@ idle share, the number of kernel launches per batch, and the kernels that
 take the most device time, summed by name. ``--fuse-planar`` sets
 ``global_options.cuda_fuse_planar`` (the ring aperture joins the run).
 
-``--kernel-times`` times the run kernel alone instead, on the calls that a
-trace of the 28-lens stack (one run of 56) and of the double Gauss records:
-its device time by torch.profiler (``ms_device``), and 20 launches between
-one pair of CUDA events (``ms``; for a kernel shorter than the host's work
-for one launch this reads the host). ``--root DIR`` takes the package and
-``chip_smoke.py`` from another directory, such as an unpacked earlier
-commit: to compare two trees on one card, run this mode for each in turn
-(earlier, this, this, earlier) within one session on the machine.
+``--kernel-times`` times the kernels alone instead. The run kernel, on the
+calls that a trace of the 28-lens stack (one run of 56), the double Gauss
+(6 + 8, and 15 with the ring fused), the asphere stack (20) and the planar
+stack (61) records: its device time by torch.profiler (``ms_device``), 20
+launches between one pair of CUDA events (``ms``; for a kernel shorter than
+the host's work for one launch this reads the host), and the host's own time
+to enqueue one launch (``host_ms``). The single-step kernel on its probe.
+The binning kernel on spread rays, clustered rays, two hot pixels among
+spread rays, the render's input and ``detector_image``'s hits, beside
+``index_add_`` on precomputed keys and values. ``--root DIR`` takes the package and ``chip_smoke.py`` from another
+directory, such as an unpacked earlier commit: to compare two trees on one
+card, run this mode for each in turn (earlier, this, this, earlier), one
+after the other on the same machine.
+
+``--sass`` builds the kernels and counts, for every kernel in the libraries,
+the instructions of its disassembly (``cuobjdump -sass``) by opcode: loads
+from shared memory (LDS), from the constant bank (LDC, ULDC), from and to
+global memory, the special-function unit's reciprocals and square roots.
 Needs one CUDA device.
 """
 
@@ -31,54 +41,163 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
+def binning_inputs(rays):
+    """The binning kernel's five inputs, as chip_smoke.py makes them:
+    name -> (px, py, w, wl, Nx, Ny, extent). Rays spread over 1.2 x the
+    extent; rays clustered on about 100 x 100 pixels and sorted by pixel; two
+    hot pixels with a quarter of the rays each on a spread background; the
+    fused render's input (the double Gauss at focus: most rays in one
+    pixel); ``detector_image``'s hits of the asphere stack."""
+    import torch
+    import optrace_tpu_torch as ot
+    import chip_smoke as cs
+    from optrace_tpu_torch.parallel import render as render_mod
+    from optrace_tpu_torch.image import render_image as render_image_mod
+
+    dev = ot.resolve_device()
+    NX = NY = cs.NX
+    g = ot.make_generator(13)
+    ext = (-43.265, 43.265, -43.265, 43.265)
+    spread = [(torch.rand(rays, generator=g, device=dev) * 2 - 1) * 1.2 * ext[1] for _ in range(2)]
+    spread += [torch.rand(rays, generator=g, device=dev),
+               380.0 + 400.0 * torch.rand(rays, generator=g, device=dev)]
+    clustered = [spread[0] * 0.09, spread[1] * 0.09, spread[2], spread[3]]
+    order = torch.argsort(torch.floor(clustered[1] * (NY / (ext[3] - ext[2]))) * 4096
+                          + torch.floor(clustered[0] * (NX / (ext[1] - ext[0]))))
+    clustered = [t[order].contiguous() for t in clustered]
+    inputs = {"spread": (*spread, NX, NY, ext), "clustered": (*clustered, NX, NY, ext)}
+    g = ot.make_generator(19)
+    xs, ys = ((torch.rand(rays + 1, generator=g, device=dev) * 2 - 1) * 1.1 * ext[1] for _ in range(2))
+    pick = torch.rand(rays + 1, generator=g, device=dev)
+    xs = torch.where(pick < 0.25, 3.2101, torch.where(pick < 0.5, -17.7303, xs))
+    ys = torch.where(pick < 0.25, -8.4102, torch.where(pick < 0.5, 21.0304, ys))
+    hot = [xs, ys, torch.rand(rays + 1, generator=g, device=dev),
+           380.0 + 400.0 * torch.rand(rays + 1, generator=g, device=dev)]
+    inputs["two_hot"] = (*(t[:rays].contiguous() for t in hot), NX, NY, ext)
+    RT = cs.double_gauss_scene(ot, True)
+    with cs.BinRecorder(render_mod) as rec, torch.no_grad():
+        ot.make_fused_render(RT, rays, Nx=NX, Ny=NY)[0](ot.make_generator(14))
+    inputs["render"] = rec.calls[0]
+    RTa = cs.asphere_scene(ot, True)
+    RTa.trace(rays)
+    with cs.BinRecorder(render_image_mod) as rec:
+        RTa.detector_image()
+    inputs["detector_image"] = rec.calls[0]
+    return inputs
+
+
 def kernel_times(args, smi):
-    """ms a launch of the run kernel on recorded calls, by scene and variant."""
+    """ms a launch of each kernel on recorded calls, by scene and variant."""
     import statistics
     import torch
     import optrace_tpu_torch as ot
     import chip_smoke as cs
     from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
+    from optrace_tpu_torch.ops.binning import binning_indices_2d
+    from optrace_tpu_torch.color.observers import x_observer, y_observer, z_observer
+
+    def run(c):
+        kw = dict(pol=c["pol"], store=c["store"])
+        if c.get("plan") is not None:       # a tree that prepares its runs
+            kw["plan"] = c["plan"]
+        return conic_run(c["p"], c["s"], c["w"], c["n_tab"], c["med_idx"], c["steps"], **kw)
 
     def ms_per_launch(c, inner=20, reps=5):
-        a = (c["p"], c["s"], c["w"], c["n_tab"], c["med_idx"], c["steps"])
-        kw = dict(pol=c["pol"], store=c["store"])
-        conic_run(*a, **kw)
-        times = []
+        """(ms between events, host ms to enqueue) a launch, 20 in a row."""
+        run(c)
+        times, host = [], []
         for _ in range(reps):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
             e0.record()
+            t0 = time.perf_counter()
             for _ in range(inner):
-                conic_run(*a, **kw)
+                run(c)
+            host.append((time.perf_counter() - t0) * 1e3 / inner)
             e1.record()
             torch.cuda.synchronize()
             times.append(e0.elapsed_time(e1) / inner)
-        return statistics.median(times)
-
-    def device_ms(c, calls=10):
-        from torch.profiler import profile, ProfilerActivity
-        from torch.autograd import DeviceType
-        a = (c["p"], c["s"], c["w"], c["n_tab"], c["med_idx"], c["steps"])
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                conic_run(*a, pol=c["pol"], store=c["store"])
-            torch.cuda.synchronize()
-        evs = [ev for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA and "conic_run_kernel" in ev.key]
-        return sum(ev.self_device_time_total for ev in evs) / 1e3 / sum(ev.count for ev in evs)
+        return statistics.median(times), statistics.median(host)
 
     rows = []
-    for scene_name, scene in (("stack56", cs.synthetic_stack_scene), ("double_gauss", cs.double_gauss_scene)):
+    go = ot.global_options
+    scenes = (("stack56", cs.synthetic_stack_scene, False), ("double_gauss", cs.double_gauss_scene, False),
+              ("asphere20", cs.asphere_scene, False), ("planar61", cs.planar_stack_scene, True),
+              ("dg15", cs.double_gauss_scene, True))
+    for scene_name, scene, fuse in scenes:
         for label, no_pol, store in (("nopol,nostore", True, False), ("nopol,store", True, True),
                                      ("pol,store", False, True)):
-            calls = cs.capture_run_calls(scene(ot, no_pol), args.rays, store, seed=11)
+            go.cuda_fuse_planar = fuse
+            try:
+                calls = cs.capture_run_calls(scene(ot, no_pol), args.rays, store, seed=11)
+            finally:
+                go.cuda_fuse_planar = False
+            timed = [ms_per_launch(c) for c in calls]
             rows.append(dict(scene=scene_name, variant=label, steps=[len(c["steps"]) for c in calls],
-                             ms=sum(ms_per_launch(c) for c in calls),
-                             ms_device=sum(device_ms(c) for c in calls)))
+                             ms=sum(t[0] for t in timed), host_ms=sum(t[1] for t in timed),
+                             ms_device=sum(cs.device_kernel_ms(lambda: run(c), "conic_run_kernel")
+                                           for c in calls)))
             del calls
             torch.cuda.empty_cache()
+
+    step = cs.check_conic_step()
+    kernel_3 = dict(ms_device=step["ms"], ms=step["ms_between_events"], max_abs_err=step["max_abs_err"])
+
+    inputs = binning_inputs(args.rays)
+    kernel_2 = []
+    for name, (px, py, w, wl, Nx, Ny, extent) in inputs.items():
+        xi, yi, wm = binning_indices_2d(px, py, w, Nx, Ny, extent)
+        keys = yi * Nx + xi
+        vals = torch.stack([x_observer(wl) * wm, y_observer(wl) * wm, z_observer(wl) * wm, wm], dim=-1)
+        out = torch.zeros((Ny * Nx, 4), dtype=torch.float32, device=px.device)
+        kernel_2.append(dict(
+            input=name, N=int(px.shape[0]), rays_in_fullest_pixel=int(torch.bincount(keys[wm != 0]).max()),
+            ms_device=cs.device_kernel_ms(lambda: bin_xyzw_cuda(px, py, w, wl, Nx, Ny, extent),
+                                          "bin_xyzw_kernel", calls=20),
+            index_add_ms_device=cs.device_kernel_ms(lambda: out.index_add_(0, keys, vals),
+                                                    "ndex", calls=20),
+            index_add_ms=cs.cuda_ms(lambda: out.index_add_(0, keys, vals))))
+        del keys, vals, out
+
     res = dict(gpu=smi, root=str(pathlib.Path(args.root).resolve()), rays=args.rays,
-               launches_between_events=20, kernel_1=rows)
+               launches_between_events=20, kernel_1=rows, kernel_2=kernel_2,
+               kernel_3=kernel_3)
     print(json.dumps(res))
+    return 0
+
+
+def sass_counts(smi):
+    """Instructions by opcode in every kernel of the built libraries."""
+    import collections
+    import re
+    from optrace_tpu_torch.ops import _build
+
+    paths = _build.build_all()
+    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    watch = ("LDS", "LDC", "ULDC", "LDG", "STG", "LDL", "STL", "RED", "ATOMG", "ATOMS", "MUFU.RCP",
+             "MUFU.RSQ", "MUFU.SQRT", "FFMA", "FMUL", "FADD", "SHFL", "VOTE", "REDUX", "MATCH", "BAR",
+             "CALL")
+    kernels = {}
+    for name, lib in paths.items():
+        text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                              check=True).stdout
+        cur = None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = kernels.setdefault(f"{name}:{m.group(1)}", collections.Counter())
+                continue
+            m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if m and cur is not None:
+                op = m.group(1)
+                cur["instructions"] += 1
+                for wname in watch:
+                    if op == wname or op.startswith(wname + "."):
+                        cur[wname] += 1
+    ptxas = [ln for ln in _build.build_info["log"].splitlines()
+             if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+    print(json.dumps(dict(gpu=smi, sass={k: dict(v) for k, v in kernels.items()}, ptxas=ptxas)))
     return 0
 
 
@@ -91,6 +210,8 @@ def main():
                     help="trace with global_options.cuda_fuse_planar set")
     ap.add_argument("--kernel-times", action="store_true",
                     help="time the run kernel alone, 20 launches between one pair of events")
+    ap.add_argument("--sass", action="store_true",
+                    help="count the instructions of every kernel's disassembly by opcode")
     ap.add_argument("--root", default=str(REPO),
                     help="directory that holds optrace_tpu_torch/ and chip_smoke.py (default: this repository)")
     ap.add_argument("--out", default="", help="also write the JSON object to this file")
@@ -110,6 +231,8 @@ def main():
     ot.global_options.cuda_fuse_planar = bool(args.fuse_planar)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    if args.sass:
+        return sass_counts(smi)
     if args.kernel_times:
         return kernel_times(args, smi)
     RT = double_gauss_scene(ot, no_pol=True)
