@@ -11,23 +11,29 @@ an asphere stack and carries its stored trace through ``detector_image`` to
 an sRGB image, bins two hot pixels on a spread background and a ragged ray
 count through ``RenderImage.render``, drives the planar step kinds (tilted
 plate, ring, rectangle, slit) in one run, measures the render with
-``cuda_fuse_planar`` off and on, probes the single-step kernel, and checks
-that every path went through its kernels (launch counters). Every phase prints one JSON line; the last line is
+``cuda_fuse_planar`` off and on, probes the single-step kernel, reads a
+stored trace's detector and source images and spectra from the sections kept
+on the card, traces a scene with an image source, a filter, HURB bending and
+an ideal lens, drives ``iterative_render`` and ``render_huge`` (interrupted,
+resumed, spherical detector), and checks that every path went through its
+kernels (launch counters). Every phase prints one JSON line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure exits with a non-zero code. Without a CUDA device the script
 fails at once: nothing here runs on the CPU.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N_RAYS = 10 ** 6
 NX = NY = 945
 N_BATCHES = 2
-N_BATCHES_FLAG = 8              # batches of each leg of the cuda_fuse_planar measurement
+N_BATCHES_FLAG = 4              # batches of each leg of the cuda_fuse_planar measurement
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12           # H100 SXM f32 peak outside the tensor cores
 # f32 operations of one step for one ray that is alive when it reaches it, by
@@ -54,6 +60,11 @@ TOL_P, TOL_W_REL, TOL_POL = 2e-5, 2e-6, 2e-5
 TOL_BIN = 1e-5                  # kernel against the same sums taken in f64
 TOL_BIN_PER_RAY = 2e-9          # plain version (one f32 add per ray): per ray in the fullest pixel
 FLIPS_PER_MRAY = 200            # rays whose hit/miss may differ (expected: 0)
+N_ITERATIVE = 4 * N_RAYS        # rays of iterative_render and render_huge: four batches
+FILTER_MAX_T = 0.9              # largest transmission of the steps scene's filter
+# an image binned in f32 on the card against an f64 histogram of the same hits
+# on the host: a hit within f32 rounding of a pixel edge may change its pixel
+TOL_EDGE_SHARE = 1e-3           # summed absolute difference over the image's power
 
 
 def emit(obj):
@@ -180,6 +191,42 @@ def asphere_tilted_scene(ot, no_pol):
     return RT
 
 
+def steps_scene(ot, use_hurb, no_pol=False):
+    """Every step kind outside the runs around the double Gauss: a colour
+    chart 2 m in front of it as an RGB image source, a Gaussian filter, the
+    objective (under ``use_hurb`` its ring aperture bends rays, so it is an
+    eager step between the runs of 6 and 8), an ideal lens and a detector."""
+    from optrace_tpu_torch.presets.geometry import double_gauss
+    RT = ot.Raytracer(outline=[-400, 400, -300, 300, -2001, 200], no_pol=no_pol, use_hurb=use_hurb)
+    RT.add(ot.RaySource(ot.presets.image.color_checker([300, 200]), divergence="Isotropic",
+                        orientation="Converging", conv_pos=[0, 0, 0], div_angle=1.0,
+                        pos=[0, 0, -2000]))
+    RT.add(ot.Filter(ot.CircularSurface(r=45), pos=[0, 0, -20],
+                     spectrum=ot.TransmissionSpectrum("Gaussian", mu=550.0, sig=60.0,
+                                                      val=FILTER_MAX_T)))
+    G = double_gauss(with_detector=False)
+    RT.add(G)
+    z_last = max(L.back.pos[2] for L in G.lenses)
+    RT.add(ot.IdealLens(r=35, D=2.0, pos=[0, 0, z_last + 3.0]))
+    RT.add(ot.Detector(ot.RectangularSurface(dim=[90, 90]), pos=[0, 0, z_last + 70.0]))
+    return RT
+
+
+def double_gauss_spherical_scene(ot, no_pol=True):
+    """The double Gauss with a spherical detector in place of its flat one."""
+    from optrace_tpu_torch.presets.geometry import double_gauss
+    RT = ot.Raytracer(outline=[-2100, 2100, -2100, 2100, -50001, 180], no_pol=no_pol)
+    RT.add(ot.RaySource(ot.CircularSurface(r=2000.0), divergence="Isotropic", orientation="Converging",
+                        conv_pos=[0, 0, 0], div_angle=0.03, pos=[0, 0, -50000],
+                        spectrum=ot.presets.light_spectrum.d65))
+    G = double_gauss(with_detector=True)
+    flat = G.detectors[0]
+    G.remove(flat)
+    RT.add(G)
+    RT.add(ot.Detector(ot.SphericalSurface(r=40, R=-120), pos=[0, 0, float(flat.pos[2])]))
+    return RT
+
+
 # ----------------------------------------------------------------------
 # kernels against their plain versions
 
@@ -190,27 +237,35 @@ def capture_run_calls(RT, N, store, seed):
     import torch
     from optrace_tpu_torch.tracer import trace_core
 
-    calls = []
-    real = trace_core.conic_run
-
-    def recorder(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None):
-        calls.append(dict(p=p, s=s, w=w, n_tab=n_tab, med_idx=med_idx, steps=steps,
-                          pol=pol, store=store, plan=plan))
-        return real(p, s, w, n_tab, med_idx, steps, pol=pol, store=store, plan=plan)
-
     RT.rays.init(RT.ray_sources, N, len(RT.tracing_surfaces) + 2, RT.no_pol)
     steps = RT._build_steps()
     gen = torch.Generator(device=RT.device)
     gen.manual_seed(seed)
-    trace_core.conic_run = recorder
-    try:
-        with torch.no_grad():
-            p, s, pols, w, wl = RT._make_source_fn(N)(gen)
-            trace_core.trace_bundle(steps, RT.n0, tuple(float(v) for v in RT.outline),
-                                    p, s, pols, w, wl, RT.no_pol, store_sections=store)
-    finally:
-        trace_core.conic_run = real
-    return calls
+    with RunRecorder() as rec, torch.no_grad():
+        p, s, pols, w, wl = RT._make_source_fn(N)(gen)
+        trace_core.trace_bundle(steps, RT.n0, tuple(float(v) for v in RT.outline),
+                                p, s, pols, w, wl, RT.no_pol, store_sections=store)
+    return rec.calls
+
+
+class RunRecorder:
+    """Records the arguments of every call that the trace makes to the run
+    kernel's wrapper while the ``with`` block runs."""
+
+    def __enter__(self):
+        from optrace_tpu_torch.tracer import trace_core
+        self.module, self.calls = trace_core, []
+        self.real = trace_core.conic_run
+
+        def recorder(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None):
+            self.calls.append(dict(p=p, s=s, w=w, n_tab=n_tab, med_idx=med_idx, steps=steps,
+                                   pol=pol, store=store, plan=plan))
+            return self.real(p, s, w, n_tab, med_idx, steps, pol=pol, store=store, plan=plan)
+        trace_core.conic_run = recorder
+        return self
+
+    def __exit__(self, *exc):
+        self.module.conic_run = self.real
 
 
 def compare_run(c, label, poisoned=False):
@@ -554,7 +609,7 @@ def main():
     from optrace_tpu_torch.ops.cuda_trace import conic_step
     from optrace_tpu_torch.parallel import render as render_mod
     from optrace_tpu_torch.image import render_image as render_image_mod
-    from optrace_tpu_torch.tracer.trace_core import trace_bundle
+    from optrace_tpu_torch.tracer.trace_core import trace_bundle, _partition_runs
     go = ot.global_options
     go.show_progress_bar = False
     go.show_warnings = False
@@ -905,7 +960,94 @@ def main():
                         flipped_rays_vs_plain=flips_a,
                         pol_trace_seconds_with_host_copy=t_trace_pol,
                         fused_render_power_on_detector=power_render_a)))
-    del RTa, RTp, rimg, rimg_p, data, rgb
+    del RTp, rimg_p, rgb
+
+    # ---- 5b. the sections kept on the card: images and spectra of that trace --
+    from optrace_tpu_torch import color as color_mod
+    assert RTa._dev_sections is not None and RTa._dev_sections[1].is_cuda
+    reset_counts()
+    t0 = time.perf_counter()
+    RTa._dev_sections = None                    # drop the tensors: the host storage is uploaded
+    rimg_h = RTa.detector_image()
+    t_image_host = time.perf_counter() - t0
+    assert bin_xyzw_cuda.launches == 1
+    # same hits either way: the images differ by the order of the binning's atomic sums
+    assert np.array_equal(rimg_h.extent, rimg.extent)
+    d_host = float(np.abs(rimg_h.data - data).max())
+    assert d_host <= TOL_BIN * data.max(), (d_host, data.max())
+    RTa.trace(N_RAYS)                           # a trace of its own: the tensors are back
+    reset_counts()
+    t0 = time.perf_counter()
+    rimg2 = RTa.detector_image()
+    t_image2 = time.perf_counter() - t0
+    assert bin_xyzw_cuda.launches == 1
+    ph_d, w_d, wl_d, ext_d, _, _, _ = RTa._hit_detector("check")
+    assert ph_d.is_cuda and ph_d.dtype == torch.float64
+    ph_h, w_h, wl_h = ph_d.cpu().numpy(), w_d.cpu().numpy(), wl_d.double().cpu().numpy()
+
+    def image_against_f64(img_r, x, y, w, wl, label):
+        """An image of the port against f64 numpy histograms of the same hits:
+        power and the Y channel; hits on a pixel edge may change their pixel."""
+        Ny_, Nx_, _ = img_r.shape
+        e = img_r.extent
+        rng = [[e[2], e[3]], [e[0], e[1]]]
+        ref_w, _, _ = np.histogram2d(y, x, bins=[Ny_, Nx_], range=rng, weights=w)
+        ref_y, _, _ = np.histogram2d(y, x, bins=[Ny_, Nx_], range=rng,
+                                     weights=w * np.asarray(color_mod.y_observer(wl), dtype=np.float64))
+        got = img_r.data
+        total = float(ref_w.sum())
+        assert abs(float(got[..., 3].sum()) - total) <= 1e-5 * total, (label, float(got[..., 3].sum()), total)
+        d_w = float(np.abs(got[..., 3] - ref_w).sum()) / total
+        d_y = float(np.abs(got[..., 1] - ref_y).sum()) / float(ref_y.sum())
+        assert d_w <= TOL_EDGE_SHARE and d_y <= TOL_EDGE_SHARE, (label, d_w, d_y)
+        return dict(power=total, sum_abs_diff_over_power=d_w, y_sum_abs_diff_over_y=d_y)
+
+    def spectrum_against_f64(spec, w, wl, label):
+        """A rendered spectrum against numpy's f64 histogram over its own bins."""
+        ref, _ = np.histogram(wl, bins=len(spec._vals), weights=w, range=[spec._wls[0], spec._wls[-1]])
+        ref = ref / (spec._wls[1] - spec._wls[0])
+        d = float(np.abs(spec._vals - ref).max())
+        # a wavelength on a bin edge may fall on either side: two rays' weight
+        assert d <= 2 * float(w.max()) / (spec._wls[1] - spec._wls[0]) + 1e-9 * ref.max(), (label, d)
+        assert abs(spec.power() - float(w.sum())) <= 1e-9 * float(w.sum()), label
+        return dict(bins=len(spec._vals), max_abs_diff=d, power=spec.power())
+
+    sections_out = dict(detector_image=image_against_f64(rimg2, ph_h[:, 0], ph_h[:, 1], w_h, wl_h,
+                                                          "detector_image"))
+    reset_counts()
+    t0 = time.perf_counter()
+    dspec = RTa.detector_spectrum()
+    t_dspec = time.perf_counter() - t0
+    sspec = RTa.source_spectrum()
+    assert bin_xyzw_cuda.launches == 0
+    with BinRecorder(render_image_mod) as rec:
+        t0 = time.perf_counter()
+        simg = RTa.source_image()
+        t_simg = time.perf_counter() - t0
+    assert bin_xyzw_cuda.launches == 1 and len(rec.calls) == 1     # kernel 2: one launch an image
+    launches["bin_xyzw@source_image"] = bin_xyzw_cuda.launches
+    px, py, w, wl, Nx_s, Ny_s, ext_s = rec.calls[0]
+    bin_source = check_binning(px, py, w, wl, ext_s, "bin_xyzw@source_image", Nx=Nx_s, Ny=Ny_s)
+    del px, py, w, wl, rec
+    src_p, src_w = RTa.rays.p_list[:, 0], RTa.rays.w_list[:, 0].astype(np.float64)
+    src_wl = RTa.rays.wl_list.astype(np.float64)
+    sections_out["source_image"] = image_against_f64(simg, src_p[:, 0], src_p[:, 1], src_w, src_wl,
+                                                     "source_image")
+    sections_out["detector_spectrum"] = spectrum_against_f64(dspec, w_h, wl_h, "detector_spectrum")
+    sections_out["source_spectrum"] = spectrum_against_f64(sspec, src_w, src_wl, "source_spectrum")
+    assert abs(simg.power() - source_power_a) <= 1e-5 * source_power_a
+    emit(dict(phase="device_sections", gpu=smi, scene="asphere_stack", N=N_RAYS,
+              detector_image_seconds=t_image, detector_image_seconds_second_trace=t_image2,
+              detector_image_seconds_from_host_storage=t_image_host,
+              detector_image_seconds_before_sections_stayed=1.88,
+              image_vs_host_storage_path_max_abs=d_host, image_max=float(data.max()),
+              tolerance=TOL_BIN * float(data.max()),
+              detector_spectrum_seconds=t_dspec, source_image_seconds=t_simg,
+              kept_tensors_MB=sum(t.numel() * t.element_size() for t in RTa._dev_sections[1:]) / 1e6,
+              bin_source_image=bin_source, against_f64_histograms=sections_out,
+              launches=dict(bin_xyzw_per_image=1, bin_xyzw_per_spectrum=0)))
+    del RTa, rimg, rimg_h, rimg2, data, simg, ph_d, w_d, wl_d, ph_h, w_h, wl_h, src_p, src_w, src_wl
+    torch.cuda.empty_cache()
 
     # ---- 6. planar kinds: tilted plate, ring, rectangle and slit in a run --
     go.cuda_fuse_planar = True
@@ -1064,6 +1206,223 @@ def main():
     launches["conic_step"] = step_res["launches"]
     emit(dict(phase="conic_step_probe", gpu=smi, **step_res))
 
+    # ---- 9. every step kind outside the runs: image source, filter, HURB, ----
+    # ---- ideal lens, through Raytracer.trace ------------------------------
+    RTs = steps_scene(ot, use_hurb=True)
+    kinds_s = [(k, len(i)) for k, i in _partition_runs(RTs._build_steps(), [], True)]
+    assert kinds_s == [("step", 1), ("run", 6), ("step", 1), ("run", 8), ("step", 1), ("step", 1)], kinds_s
+    assert [st.action for st in RTs._build_steps()] == \
+        ["filter"] + ["refract"] * 6 + ["absorb"] + ["refract"] * 8 + ["ideal", "absorb"]
+    RTs.trace(20000)                            # warm-up at a small size
+    torch.cuda.synchronize()
+    reset_counts()
+    with RunRecorder() as rec_s:
+        t0 = time.perf_counter()
+        RTs.trace(N_RAYS)
+        t_steps = time.perf_counter() - t0
+    assert conic_run.launches == 2 and conic_run.variant_launches == {(True, True): 2}, conic_run.variant_launches
+    launches["conic_run[pol,store]@steps"] = conic_run.launches
+    steps_kernel = check_run_calls(rec_s.calls, "conic_run[pol,store]@steps")
+    del rec_s
+    n_launch_steps = device_launches(lambda: RTs.trace(N_RAYS))
+    RTs._seed_counter = 1
+    RTs.trace(N_RAYS)                           # the trace that is compared draws seed 2, as a fresh scene's second
+    simg_s = RTs.detector_image()
+    # the same seed through the plain runs: same eager stream, same generator
+    RTq = steps_scene(ot, use_hurb=True)
+    before = conic_run.launches
+    go.cuda_trace = False
+    try:
+        RTq.trace(20000)
+        RTq.trace(N_RAYS)
+    finally:
+        go.cuda_trace = True
+    assert conic_run.launches == before
+    ra, rb = RTs.rays, RTq.rays
+    sections_equal = bool(np.array_equal(ra.p_list, rb.p_list) and np.array_equal(ra.w_list, rb.w_list)
+                          and np.array_equal(ra.pol_list, rb.pol_list, equal_nan=True)
+                          and np.array_equal(ra.wl_list, rb.wl_list))
+    assert sections_equal, "steps scene: kernel and plain runs give other sections"
+    assert np.array_equal(RTs._msgs, RTq._msgs), (RTs._msgs.sum(axis=1), RTq._msgs.sum(axis=1))
+    del RTq, rb
+    source_power_s = sum(rs.power for rs in RTs.ray_sources)
+    w_src, w_filt = float(ra.w_list[:, 0].sum()), float(ra.w_list[:, 1].sum())
+    assert w_filt <= FILTER_MAX_T * w_src * (1 + 1e-6), (w_filt, w_src)
+    assert 0.0 < simg_s.power() <= FILTER_MAX_T * source_power_s, (simg_s.power(), source_power_s)
+    assert np.isfinite(ra.pol_list[ra.w_list[:, -2] > 0, -2]).all()
+    # the same rays without HURB: equal up to the ring, and from there every
+    # ray keeps its geometric path: the spot of a ray about that path has
+    # width 0 without HURB and more with it
+    RTo = steps_scene(ot, use_hurb=False)
+    RTo.trace(20000)
+    RTo.trace(N_RAYS)
+    ro = RTo.rays
+    j_ring = 8                                  # section of the ring aperture (source 0, filter 1, 6 refractions)
+    assert np.array_equal(ro.p_list[:, :j_ring + 1], ra.p_list[:, :j_ring + 1])
+    both = (ro.w_list[:, -2] > 0) & (ra.w_list[:, -2] > 0)
+    shift = np.linalg.norm(ra.p_list[both, -2, :2] - ro.p_list[both, -2, :2], axis=1)
+    rms_shift_um = float(np.sqrt(np.mean(shift ** 2))) * 1e3
+    assert rms_shift_um > 0.01 and float(np.mean(shift > 0)) > 0.5, rms_shift_um
+    assert int(RTo._msgs[4].sum()) == 0
+    emit(dict(phase="steps", gpu=smi, scene="image source, filter, double Gauss with HURB, ideal lens",
+              N=N_RAYS, actions=[st.action for st in RTs._build_steps()], partition=kinds_s,
+              launches=dict(conic_run_per_trace=2, device_launches_per_trace=n_launch_steps),
+              trace_seconds_with_host_copy=t_steps, kernel=steps_kernel,
+              sections_bit_equal_to_plain_runs=sections_equal,
+              infos_rows=RTs._msgs.sum(axis=1).tolist(), hurb_neg_dir=int(RTs._msgs[4].sum()),
+              source_power=source_power_s, power_behind_filter=w_filt,
+              power_on_detector=simg_s.power(), filter_max_transmission=FILTER_MAX_T,
+              hurb_rms_shift_on_detector_um=rms_shift_um, without_hurb_rms_shift_um=0.0))
+    del RTs, RTo, ra, ro, simg_s, shift, both
+    torch.cuda.empty_cache()
+
+    # ---- 10. iterative_render: a stored batch, then fused batches ---------
+    from optrace_tpu_torch.parallel.checkpoint import batch_generator, batch_seed, RenderCheckpoint
+    RTi = double_gauss_scene(ot, no_pol=True)
+    z_det = float(RTi.detectors[0].pos[2])
+    positions = [[0.0, 0.0, z_det], [0.0, 0.0, z_det - 2.0]]
+    assert RTi.ITER_RAYS_STEP == N_RAYS
+    RTi.trace(20000)                            # warm-up; the render's first batch draws seed 2
+    torch.cuda.synchronize()
+    reset_counts()
+    with BinRecorder(render_mod) as rec_i:
+        t0 = time.perf_counter()
+        imgs_i = RTi.iterative_render(N_ITERATIVE, pos=positions)
+        torch.cuda.synchronize()
+        t_iter = time.perf_counter() - t0
+    n_fused = N_ITERATIVE // N_RAYS - 1
+    assert conic_run.launches == 2 + 2 * n_fused, conic_run.launches
+    assert conic_run.variant_launches == {(False, True): 2, (False, False): 2 * n_fused}
+    assert bin_xyzw_cuda.launches == len(positions) * (1 + n_fused), bin_xyzw_cuda.launches
+    launches["conic_run[nopol,store]@iterative"] = conic_run.variant_launches[(False, True)]
+    launches["conic_run[nopol,nostore]@iterative"] = conic_run.variant_launches[(False, False)]
+    launches["bin_xyzw@iterative"] = bin_xyzw_cuda.launches
+    px, py, w, wl, Nx_i, Ny_i, ext_i = rec_i.calls[0]
+    bin_iter = check_binning(px, py, w, wl, ext_i, "bin_xyzw@iterative", Nx=Nx_i, Ny=Ny_i)
+    del px, py, w, wl, rec_i
+    # the same render by hand through the plain versions: the stored batch
+    # (same seed), then the fused batches with the generators of their index
+    RTh = double_gauss_scene(ot, no_pol=True)
+    before = (conic_run.launches, bin_xyzw_cuda.launches)
+    go.cuda_trace = False
+    go.cuda_binning = False
+    try:
+        RTh.trace(20000)
+        RTh.trace(N_RAYS)
+        hand = []
+        for j, pos_j in enumerate(positions):
+            RTh.detectors[0].move_to(pos_j)
+            im = RTh.detector_image(_dont_filter=True)
+            im._data *= N_RAYS / N_ITERATIVE
+            hand.append(im)
+        cfgs = [dict(detector_index=0, pos=positions[j], extent=tuple(hand[j].extent),
+                     filter_extent=tuple(hand[j]._extent0), Ny=hand[j].shape[0], Nx=hand[j].shape[1])
+                for j in range(len(positions))]
+        render_h, _ = ot.make_fused_render_multi(RTh, N_RAYS, cfgs)
+        with torch.no_grad():
+            for i in range(1, n_fused + 1):
+                tiles, _ = render_h(batch_generator(0x17E7 + RTh._seed_counter, i, dev))
+                for j in range(len(positions)):
+                    hand[j]._data += tiles[j].double().cpu().numpy() * (N_RAYS / N_ITERATIVE)
+    finally:
+        go.cuda_trace = True
+        go.cuda_binning = True
+    assert (conic_run.launches, bin_xyzw_cuda.launches) == before
+    iter_out = []
+    source_power_i = sum(rs.power for rs in RTi.ray_sources)
+    for j in range(len(positions)):
+        a, b = imgs_i[j], hand[j]
+        assert np.array_equal(a.extent, b.extent) and a.shape == b.shape
+        # the hit share of the source power, from the same rays through the plain versions
+        assert abs(a.power() - b.power()) <= 1e-3 * b.power(), (a.power(), b.power())
+        assert 0.0 < a.power() <= source_power_i and np.isfinite(a.data).all()
+        d_sum = float(np.abs(a.data - b.data).sum())
+        assert d_sum <= 5e-4 * float(np.abs(b.data).sum()), d_sum
+        iter_out.append(dict(pos=positions[j], extent=list(a.extent), power=a.power(),
+                             power_by_plain_versions=b.power(), sum_abs_diff=d_sum))
+    emit(dict(phase="iterative", gpu=smi, scene="double_gauss", N=N_ITERATIVE, batch=N_RAYS,
+              positions=len(positions), seconds=t_iter, rays_per_s=N_ITERATIVE / t_iter,
+              launches=dict(conic_run=2 + 2 * n_fused, bin_xyzw=len(positions) * (1 + n_fused),
+                            stored_batches=1, fused_batches=n_fused),
+              images=iter_out, source_power=source_power_i, bin_first_fused_batch=bin_iter,
+              infos_rows=RTi._msgs.sum(axis=1).tolist()))
+    del RTi, RTh, imgs_i, hand, tiles
+    torch.cuda.empty_cache()
+
+    # ---- 11. render_huge: interrupted, resumed; a spherical detector -------
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ck_path = os.path.join(ck_dir, "huge.ckpt.npz")
+    kw_h = dict(batch_size=N_RAYS, checkpoint_every=1)
+    reset_counts()
+    t0 = time.perf_counter()
+    full = double_gauss_scene(ot, True).render_huge(N_ITERATIVE, **kw_h)
+    torch.cuda.synchronize()
+    t_huge = time.perf_counter() - t0
+    n_b = N_ITERATIVE // N_RAYS
+    assert conic_run.launches == 2 * n_b and conic_run.variant_launches == {(False, False): 2 * n_b}
+    assert bin_xyzw_cuda.launches == n_b
+    launches["conic_run[nopol,nostore]@huge"] = conic_run.launches
+    launches["bin_xyzw@huge"] = bin_xyzw_cuda.launches
+
+    class Interrupted(Exception):
+        pass
+
+    real_save = RenderCheckpoint.save
+
+    def save_then_stop(self):
+        real_save(self)
+        if self.done == 2:
+            raise Interrupted
+    RenderCheckpoint.save = save_then_stop
+    try:
+        double_gauss_scene(ot, True).render_huge(N_ITERATIVE, checkpoint_path=ck_path, **kw_h)
+        raise AssertionError("render_huge was not interrupted")
+    except Interrupted:
+        pass
+    finally:
+        RenderCheckpoint.save = real_save
+    on_disk = RenderCheckpoint(ck_path, n_b)
+    assert on_disk.done == 2 and list(on_disk.remaining()) == [2, 3]
+    reset_counts()
+    t0 = time.perf_counter()
+    resumed = double_gauss_scene(ot, True).render_huge(N_ITERATIVE, checkpoint_path=ck_path, **kw_h)
+    t_resume = time.perf_counter() - t0
+    assert conic_run.launches == 2 * 2 and bin_xyzw_cuda.launches == 2      # the two batches left
+    d_resume = float(np.abs(resumed.data - full.data).max())
+    assert d_resume <= TOL_BIN * full.data.max(), (d_resume, full.data.max())
+    assert abs(resumed.power() - full.power()) <= 1e-6 * full.power()
+    assert RenderCheckpoint(ck_path, n_b).done == n_b
+    for f in os.listdir(ck_dir):
+        os.remove(os.path.join(ck_dir, f))
+    os.rmdir(ck_dir)
+    # spherical detector: one fused batch against detector_image of a stored
+    # trace of the same rays (the generator of batch 0 seeds the trace)
+    ext_sph = [-0.05, 0.05, -0.05, 0.05]
+    reset_counts()
+    sph = double_gauss_spherical_scene(ot).render_huge(N_RAYS, batch_size=N_RAYS, extent=ext_sph,
+                                                      projection_method="Equidistant")
+    assert conic_run.launches == 2 and bin_xyzw_cuda.launches == 1
+    RTsp = double_gauss_spherical_scene(ot)
+    RTsp._seed_counter = batch_seed(0, 0) - 1
+    RTsp.trace(N_RAYS)
+    sph_stored = RTsp.detector_image(extent=ext_sph, projection_method="Equidistant")
+    assert sph.projection == "Equidistant" == sph_stored.projection and sph.shape == sph_stored.shape
+    p_sph = sph_stored.power()
+    assert p_sph > 0.1 and abs(sph.power() - p_sph) <= 1e-4 * p_sph, (sph.power(), p_sph)
+    d_sph = float(np.abs(sph.data[..., 3] - sph_stored.data[..., 3]).sum())
+    assert d_sph <= 2e-3 * p_sph, (d_sph, p_sph)      # hits on a pixel edge: the sink's frame differs
+    lit = float(np.mean(sph_stored.data[..., 3] > 0))
+    assert lit > 0.002, lit
+    emit(dict(phase="huge", gpu=smi, scene="double_gauss", N=N_ITERATIVE, batch=N_RAYS,
+              seconds_uninterrupted_no_checkpoint=t_huge, rays_per_s=N_ITERATIVE / t_huge,
+              seconds_resumed_two_batches_with_saves=t_resume,
+              launches=dict(conic_run=2 * n_b, bin_xyzw=n_b),
+              resumed_vs_uninterrupted_max_abs=d_resume, image_max=float(full.data.max()),
+              tolerance=TOL_BIN * float(full.data.max()), power=full.power(),
+              spherical=dict(projection="Equidistant", extent=ext_sph, power_fused=sph.power(),
+                             power_stored=p_sph, sum_abs_diff_power=d_sph, lit_pixel_share=lit)))
+    del full, resumed, sph, sph_stored, RTsp
+
     # ---- the kernels of every path --------------------------------------
     rows = dict(main_shapes)
     rows.update({k + "@asphere20": v for k, v in asph.items()})
@@ -1072,6 +1431,16 @@ def main():
     rows["bin_xyzw@detector_image"] = bin_image
     rows.update(bin_paths)
     rows["conic_step"] = step_res
+    # the paths of the image and spectrum outputs and of the batched renders:
+    # a row measured on that path's own inputs where they differ from the
+    # main path's, else the main path's row (same shapes) with this path's launches
+    rows["bin_xyzw@source_image"] = bin_source
+    rows["conic_run[pol,store]@steps"] = steps_kernel
+    rows["conic_run[nopol,store]@iterative"] = main_shapes["conic_run[nopol,store]"]
+    rows["conic_run[nopol,nostore]@iterative"] = main_shapes["conic_run[nopol,nostore]"]
+    rows["bin_xyzw@iterative"] = bin_iter
+    rows["conic_run[nopol,nostore]@huge"] = main_shapes["conic_run[nopol,nostore]"]
+    rows["bin_xyzw@huge"] = main_shapes["bin_xyzw"]
     sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
                "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),
                "conic_step": ("conic_step.cu", "optrace_tpu/ops/pallas_trace.py:152")}

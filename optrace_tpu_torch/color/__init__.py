@@ -14,7 +14,8 @@ from .srgb import (SRGB_RENDERING_INTENTS, SRGB_R_XY, SRGB_G_XY, SRGB_B_XY,  # n
                    srgb_to_xyz, xyz_to_srgb_linear, xyz_to_srgb, outside_srgb_gamut,
                    get_chroma_scale, log_srgb,
                    srgb_r_primary, srgb_g_primary, srgb_b_primary,
-                   power_from_srgb_linear, spectral_colormap)
+                   power_from_srgb_linear, wavelengths_from_srgb,
+                   random_wavelengths_from_srgb, spectral_colormap)
 from .illuminants import (ILLUMINANT_NAMES, illuminant,  # noqa: F401
                           a_illuminant, c_illuminant, e_illuminant,
                           d50_illuminant, d55_illuminant, d65_illuminant, d75_illuminant,

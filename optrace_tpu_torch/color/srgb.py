@@ -8,10 +8,12 @@ Numeric constants (sRGB primary chromaticities, Lindbloom conversion
 matrices, CIELUV gamut polygon, synthetic-primary Gaussian parameters and
 power factors) are *behavioral spec*: the synthetic r/g/b primary spectra
 must reproduce exactly the sRGB primary xyY coordinates so that image
-sources mix to correct colors. Sampling wavelengths from an sRGB image
-(``random_wavelengths_from_srgb``) belongs to the image sources and arrives
-with them.
+sources mix to correct colors. Sampling wavelengths from an sRGB image is
+split into the draw (``random_wavelengths_from_srgb``) and a pure function
+of the uniforms (``wavelengths_from_srgb``).
 """
+
+import functools
 
 import math
 
@@ -306,6 +308,53 @@ def power_from_srgb_linear(rgbl) -> torch.Tensor:
     rgbl = as_tensor(rgbl)
     f = SRGB_PRIMARY_POWER_FACTORS
     return rgbl[..., 0] * f[0] + rgbl[..., 1] * f[1] + rgbl[..., 2] * f[2]
+
+
+@functools.lru_cache(maxsize=4)
+def _primary_inverse_cdfs(wl_range: tuple):
+    """Host tables (x grid, pdf) of the three primaries over ``wl_range``."""
+    wl = tools.wavelengths(5000)
+    return wl, tuple(f(wl).numpy() for f in (srgb_r_primary, srgb_g_primary, srgb_b_primary))
+
+
+def wavelengths_from_srgb(rgb, choice, u) -> torch.Tensor:
+    """One wavelength per sRGB colour from two uniforms per colour in
+    [0, 1): ``choice`` picks a primary with probability ∝ its linear
+    channel power, ``u`` goes through that primary's inverse CDF.
+
+    :param rgb: (N, 3) sRGB values, a tensor on the sampling device
+    :param choice, u: (N,) tensors on the same device
+    """
+    from ..ops import sampling
+    if tools.WL_MIN0 < global_options.wavelength_range[0] \
+            or tools.WL_MAX0 > global_options.wavelength_range[1]:
+        raise RuntimeError(f"Wavelength range {global_options.wavelength_range} does not "
+                           f"include [{tools.WL_MIN0}, {tools.WL_MAX0}] needed here.")
+
+    rgbl = srgb_to_srgb_linear(rgb)
+    rgbl = rgbl * torch.as_tensor(SRGB_PRIMARY_POWER_FACTORS, dtype=rgbl.dtype, device=rgbl.device)
+    csum = torch.cumsum(rgbl, dim=-1)
+    last = csum[:, -1:]
+    csum = csum / torch.where(last > 0, last, 1.0)
+    make_r = choice < csum[:, 0]
+    make_b = choice > csum[:, 1]
+
+    # the same uniform through all three inverse CDFs, selected per ray
+    wl, pdfs = _primary_inverse_cdfs(tuple(global_options.wavelength_range))
+    wl_r, wl_g, wl_b = (sampling.inverse_transform_from_u(u, wl, f) for f in pdfs)
+    return torch.where(make_r, wl_r, torch.where(make_b, wl_b, wl_g))
+
+
+def random_wavelengths_from_srgb(gen: torch.Generator, rgb) -> torch.Tensor:
+    """Sample one wavelength per sRGB colour on the generator's device:
+    draws ``choice`` and ``u`` (stratified, in this order) and maps them
+    through :func:`wavelengths_from_srgb`."""
+    from ..ops import sampling
+    rgb = as_tensor(rgb).to(gen.device)
+    N = rgb.shape[0]
+    choice = sampling.stratified_interval_sampling(gen, N, 0.0, 1.0)
+    u = sampling.stratified_interval_sampling(gen, N, 0.0, 1.0)
+    return wavelengths_from_srgb(rgb, choice, u)
 
 
 # ----------------------------------------------------------------------

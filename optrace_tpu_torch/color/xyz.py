@@ -26,7 +26,7 @@ def as_tensor(a) -> torch.Tensor:
     a = np.asarray(a)
     if not np.issubdtype(a.dtype, np.floating):
         a = a.astype(np.float64)
-    return torch.as_tensor(a)
+    return torch.as_tensor(np.ascontiguousarray(a))     # a flipped view has negative strides
 
 
 def xyz_to_xyY(xyz) -> torch.Tensor:

@@ -1,8 +1,6 @@
 """Scene container (counterpart of ``optrace_tpu/geometry/group.py``): typed
 element lists, z-sorted iteration, flip with media-chain remap, rotation.
-Markers, volumes, ``IdealLens``, ``Filter`` and the group TMA arrive with
-their slices; ``filters`` stays as an (empty) list so the element lists keep
-their layout."""
+Markers, volumes and the group TMA arrive with their slices."""
 
 from __future__ import annotations
 
@@ -11,6 +9,8 @@ from typing import Any
 import numpy as np
 
 from .lens import Lens
+from .ideal_lens import IdealLens
+from .filter import Filter
 from .aperture import Aperture
 from .detector import Detector
 from .ray_source import RaySource
@@ -58,13 +58,13 @@ class Group(BaseClass):
 
     @property
     def tracing_surfaces(self) -> list[Surface]:
-        """All light-interacting surfaces (lens front/back, apertures),
-        z-sorted."""
+        """All light-interacting surfaces (lens front/back, filters,
+        apertures), z-sorted. IdealLens contributes one surface."""
         surfs = []
         for el in self.elements:
-            if isinstance(el, (Lens, Aperture)):
+            if isinstance(el, (Lens, Filter, Aperture)):
                 surfs.append(el.front)
-                if el.has_back():
+                if el.has_back() and not isinstance(el, IdealLens):
                     surfs.append(el.back)
         return surfs
 
@@ -135,6 +135,8 @@ class Group(BaseClass):
 
         if isinstance(el, Aperture):
             self.apertures.append(el)
+        elif isinstance(el, Filter):
+            self.filters.append(el)
         elif isinstance(el, RaySource):
             self.ray_sources.append(el)
         elif isinstance(el, Detector):

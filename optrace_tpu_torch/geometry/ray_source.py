@@ -3,8 +3,10 @@
 Counterpart of ``optrace_tpu/geometry/ray_source.py``: ``create_rays(gen, N,
 ...)`` makes the rays on the device of the ``torch.Generator`` it is given.
 
-Emitter kinds: Surface (uniform emittance), Point/Line. Image sources
-arrive with the image slice. Divergence None/Lambertian/Isotropic/Function
+Emitter kinds: Surface (uniform emittance), Point/Line, RGBImage (per-pixel
+probability ∝ linear-RGB radiant power, wavelengths from the sRGB primary
+spectra matching the pixel colour) and GrayscaleImage (emittance from the
+image, user spectrum). Divergence None/Lambertian/Isotropic/Function
 (cone or 2D arc); orientation Constant/Converging/Function; polarization
 x/y/xy/Constant/Uniform/List/Function with transport onto each ray's
 transverse plane.
@@ -17,10 +19,13 @@ import numpy as np
 import torch
 
 from .element import Element
-from .surface import Surface
+from .surface import Surface, RectangularSurface
 from .point import Point
 from .line import Line
 from ..spectrum.light_spectrum import LightSpectrum
+from .. import color
+from ..image.rgb_image import RGBImage
+from ..image.grayscale_image import GrayscaleImage
 from ..ops import sampling
 from ..ops.vector import cross as tcross, normalize_safe
 from ..utils.property_checker import PropertyChecker as pc
@@ -34,6 +39,7 @@ class RaySource(Element):
 
     abbr: str = "RS"
     _allow_non_2D: bool = True
+    _max_image_px: float = 2e6
 
     def __init__(self, surface, pos=None,
                  divergence: str = "None", div_angle: float = 0.5,
@@ -47,10 +53,28 @@ class RaySource(Element):
                  pol_args: dict = None, **kwargs) -> None:
         self._new_lock = False
 
-        if not isinstance(surface, (Surface, Point, Line)):
-            raise NotImplementedError("image sources arrive with the image slice "
-                                      "(ROADMAP: image sources)")
-        surface_ = surface
+        if isinstance(surface, (RGBImage, GrayscaleImage)):
+            if surface.shape[0] * surface.shape[1] > self._max_image_px:
+                raise RuntimeError(f"Image has more than {self._max_image_px:.0f} pixels.")
+            surface_ = RectangularSurface(dim=surface.s)
+            self._image = surface
+            if isinstance(surface, RGBImage):
+                sRGBL = color.srgb_to_srgb_linear(surface._data)
+                If = color.power_from_srgb_linear(sRGBL).numpy().flatten()
+                self._mean_img_color = color.srgb_linear_to_srgb(
+                    sRGBL.mean(dim=(0, 1))[None, None, :]).numpy()[0, 0]
+            else:
+                If = color.srgb_to_srgb_linear(surface.data).numpy().ravel()
+                self._mean_img_color = None
+            self._pIf = If / If.sum()
+        elif isinstance(surface, (Surface, Point, Line)):
+            surface_ = surface
+            self._image = None
+            self._pIf = None
+            self._mean_img_color = None
+        else:
+            raise TypeError(f"a RaySource emits from a Surface, Point, Line, RGBImage or "
+                            f"GrayscaleImage, not from {type(surface).__name__}")
 
         pos = pos if pos is not None else [0, 0, 0]
         super().__init__(surface_, pos, **kwargs)
@@ -86,6 +110,25 @@ class RaySource(Element):
         self._new_lock = True
 
     # ------------------------------------------------------------------
+    def image_pixels(self, u):
+        """Flat pixel index (row-major, int64) of an image source for
+        uniforms ``u`` in [0, 1): the lower bound of ``u`` in the f32
+        cumulative pixel power, clipped to the last pixel. ``u`` decides
+        the device."""
+        cdf = np.cumsum(self._pIf)
+        cdf = torch.as_tensor((cdf / cdf[-1]).astype(np.float32), device=u.device)
+        return torch.clamp(torch.searchsorted(cdf, u, right=False), max=cdf.shape[0] - 1)
+
+    def image_positions(self, P, rx, ry):
+        """Positions (N, 3) inside the pixels ``P`` (flat indices) of an
+        image source, from the in-pixel uniforms ``rx, ry`` in [0, 1)."""
+        Iy, Ix = self._image.shape[:2]
+        PY, PX = torch.div(P, Ix, rounding_mode="floor"), P % Ix
+        xs, xe, ys, ye = (float(v) for v in self.surface.extent[:4])
+        px = (xe - xs) / Ix * (PX + rx) + xs
+        py = (ye - ys) / Iy * (PY + ry) + ys
+        return torch.stack([px, py, torch.full_like(px, float(self.pos[2]))], dim=-1)
+
     def create_rays(self, gen: torch.Generator, N: int, no_pol: bool = False,
                     power: float = None):
         """Generate N rays (p, s, pols, weights, wavelengths) as f32 tensors
@@ -97,11 +140,24 @@ class RaySource(Element):
         power = power if power is not None else self.power
         weights = torch.full((N,), power / N, dtype=f32, device=dev)
 
-        pc.check_type("RaySource.spectrum", self.spectrum, LightSpectrum)
-        wavelengths = self.spectrum.random_wavelengths(gen, N).to(f32)
+        # wavelengths (an RGB image draws them below, from its pixels)
+        if not isinstance(self._image, RGBImage):
+            pc.check_type("RaySource.spectrum", self.spectrum, LightSpectrum)
+            wavelengths = self.spectrum.random_wavelengths(gen, N).to(f32)
 
         # starting positions
-        p = self.surface.random_positions(gen, N).to(f32)
+        if self._image is None:
+            p = self.surface.random_positions(gen, N).to(f32)
+        else:
+            if self._image.shape[0] * self._image.shape[1] == 1:
+                P = torch.zeros((N,), dtype=torch.int64, device=dev)
+            else:
+                P = self.image_pixels(sampling.stratified_interval_sampling(gen, N, 0.0, 1.0))
+            rx, ry = sampling.stratified_rectangle_sampling(gen, N, 0.0, 1.0, 0.0, 1.0)
+            p = self.image_positions(P, rx, ry).to(f32)
+            if isinstance(self._image, RGBImage):
+                pix = torch.as_tensor(self._image._data.reshape(-1, 3), dtype=f32, device=dev)
+                wavelengths = color.random_wavelengths_from_srgb(gen, pix[P]).to(f32)
 
         # orientations
         if self.orientation == "Constant":
@@ -213,6 +269,14 @@ class RaySource(Element):
             pols = torch.where(axial[:, None], pol0, pol_t)
 
         return p, s.contiguous(), pols, weights, wavelengths
+
+    # ------------------------------------------------------------------
+    def color(self, rendering_intent: str = "Ignore", clip: bool = False):
+        """Mean color of the source (image mean color for image sources,
+        spectrum color otherwise)."""
+        if self._mean_img_color is not None:
+            return tuple(float(v) for v in self._mean_img_color)
+        return self.spectrum.color(rendering_intent, clip)
 
     # ------------------------------------------------------------------
     def __setattr__(self, key: str, val: Any) -> None:

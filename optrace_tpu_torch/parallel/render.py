@@ -6,7 +6,8 @@ Counterpart of ``optrace_tpu/parallel/render.py`` (``_detector_sink``,
 consumed *while the trace runs* (a streaming sink in trace_bundle, see
 tracer/detector.segment_update) and sections are never stored, so device
 memory is O(N) per batch regardless of total ray count AND surface count.
-The sharded render over several devices arrives with its own slice.
+A spherical detector's hits are projected on the device before they are
+binned. The sharded render over several devices arrives with its own slice.
 """
 
 import torch
@@ -14,7 +15,8 @@ import torch
 from ..geometry import SphericalSurface
 from ..tracer.scene_compile import compile_surface
 from ..tracer.trace_core import trace_bundle, RunPlans
-from ..tracer.detector import build_segment_mask, init_hit_carry, segment_update
+from ..tracer.detector import (build_segment_mask, init_hit_carry, segment_update,
+                               sphere_projection_xy)
 from ..ops import binning
 from ..ops.cuda_binning import bin_xyzw_cuda
 from ..utils.device import resolve_device
@@ -26,13 +28,13 @@ def _detector_sink(RT, detector_index: int, projection_method, extent,
     """Build (sink_fn, finalize, extent, seg_mask) for one detector config.
 
     ``finalize(carry, wl)`` bins the accumulated hits into an (Ny, Nx, 4)
-    XYZW tile. ``filter_extent`` optionally drops hits outside a tighter
-    box than the binning extent.
+    XYZW tile, after the sphere projection where the detector surface is
+    spherical. ``filter_extent`` optionally drops hits outside a tighter
+    box than the binning extent (the iterative render discards rays outside
+    its first batch's automatic extent even when a resolution limit widens
+    the grid).
     """
     dsurf = RT.detectors[detector_index].surface
-    if isinstance(dsurf, SphericalSurface) and projection_method is not None:
-        raise NotImplementedError("sphere projections of a curved detector arrive with the "
-                                  "image slice (ROADMAP: image/* and detector_image)")
     sfns = compile_surface(dsurf, device)
     det_zmin = float(dsurf.z_min)
     seg_mask = build_segment_mask(RT._section_z_bounds(),
@@ -40,6 +42,10 @@ def _detector_sink(RT, detector_index: int, projection_method, extent,
     if extent is None:
         extent = dsurf.extent[:4]
     ext = tuple(float(v) for v in extent)
+
+    spherical = isinstance(dsurf, SphericalSurface) and projection_method is not None
+    pos = tuple(float(v) for v in dsurf.pos)
+    R = float(dsurf.R) if spherical else 0.0
 
     def sink(j, p_prev, p_new, w_prev, carry):
         if not seg_mask[j]:
@@ -50,6 +56,8 @@ def _detector_sink(RT, detector_index: int, projection_method, extent,
         ph, wsel, is_hit, done, _ = carry
         wm = torch.where(is_hit & done, wsel, 0.0)
         x, y = ph[:, 0], ph[:, 1]
+        if spherical:
+            x, y = sphere_projection_xy(x, y, ph[:, 2], pos, R, projection_method)
         if filter_extent is not None:
             fx = filter_extent
             inside = (fx[0] <= x) & (x <= fx[1]) & (fx[2] <= y) & (y <= fx[3])

@@ -13,7 +13,7 @@ import scipy.special
 
 from .spectrum import Spectrum
 from .. import color
-from ..ops import sampling
+from ..ops import sampling, binning
 from ..utils.property_checker import PropertyChecker as pc
 from ..utils.global_options import global_options as go
 
@@ -32,24 +32,26 @@ class LightSpectrum(Spectrum):
     # ------------------------------------------------------------------
     @staticmethod
     def render(wl, w, **kwargs) -> "LightSpectrum":
-        """Render a Histogram LightSpectrum from wavelength/weight arrays
-        (reference light_spectrum.py:40-79: ≥51 odd bin count scaling √N,
-        values scaled to W/nm)."""
-        wl = np.asarray(wl)
-        w = np.asarray(w)
+        """Render a Histogram LightSpectrum from wavelengths and weights,
+        tensors (binned on their device) or host arrays: an odd bin count
+        of at least 51 that grows with √N, values scaled to W/nm, and
+        ``_wls``, ``_vals`` as f64 host arrays."""
+        wl = torch.as_tensor(np.array(wl) if isinstance(wl, np.ndarray) else wl).to(torch.float64)
+        w = torch.as_tensor(np.array(w) if isinstance(w, np.ndarray) else w).to(wl.device, torch.float64)
         spec = LightSpectrum("Histogram", **kwargs)
 
-        N = max(51, math.sqrt(np.count_nonzero(w)) / 2)
+        N = max(51, math.sqrt(int(torch.count_nonzero(w))) / 2)
         N = 1 + 2 * (int(N) // 2)
 
         if not wl.shape[0]:
             spec._wls = np.asarray(color.wavelengths(N + 1))
             spec._vals = np.zeros(N, dtype=np.float64)
         else:
-            wl0, wl1 = wl.min(), wl.max()
+            wl0, wl1 = torch.stack([wl.min(), wl.max()]).tolist()
             if abs(wl0 - wl1) < 1:
                 wl0, wl1 = max(wl0 - 1, go.wavelength_range[0]), min(wl0 + 1, go.wavelength_range[1])
-            vals, wls = np.histogram(wl, bins=N, weights=w, range=[wl0, wl1])
+            wls = np.linspace(wl0, wl1, N + 1)
+            vals = binning.histogram_1d(wl, w, N, wl0, wl1).cpu().numpy()
             spec._vals = vals / (wls[1] - wls[0])
             spec._wls = wls
         return spec

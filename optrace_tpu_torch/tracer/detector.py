@@ -13,6 +13,8 @@ Two entry points share the same per-segment function:
   running, so no (N, nt, 3) section tensor ever materializes.
 """
 
+import math
+
 import torch
 
 from ..ops import geom
@@ -98,3 +100,32 @@ def detector_hits(sfns: SurfaceFns, det_zmin: float, p_all, w_all,
                                    w_all[:, j], carry)
     ph, wsel, is_hit, done, n_ill = carry
     return ph, wsel, is_hit & done, n_ill
+
+
+def sphere_projection_xy(x, y, z, pos, R: float, method: str):
+    """Tensor form of ``SphericalSurface.sphere_projection`` for binning on
+    the device: hit coordinates on a sphere with vertex ``pos`` and
+    curvature radius ``R`` to projected (x', y'), in the type of ``x``."""
+    x0, y0, z0 = pos[0], pos[1], pos[2]
+    zm = z0 + R
+    sgn = math.copysign(1.0, R)
+    if method is None or method == "Orthographic":
+        return x, y
+    if method == "Equidistant":
+        r = torch.hypot(x - x0, y - y0)
+        theta = -sgn * torch.arctan(r / (z - zm))
+        phi = torch.atan2(y - y0, x - x0)
+        return theta * torch.cos(phi), theta * torch.sin(phi)
+    if method == "Stereographic":
+        r = torch.hypot(x - x0, y - y0)
+        theta = math.pi / 2 - torch.arctan(r / (z - zm))
+        phi = torch.atan2(y - y0, x - x0)
+        rp = -2.0 * sgn * torch.tan(math.pi / 4 - theta / 2)
+        return rp * torch.cos(phi), rp * torch.sin(phi)
+    if method == "Equal-Area":
+        x_ = (x - x0) / abs(R)
+        y_ = (y - y0) / abs(R)
+        z_ = (z - zm) / R
+        f = torch.sqrt(2.0 / (1.0 - z_))
+        return f * x_, f * y_
+    raise ValueError(f"Invalid projection_method {method}.")

@@ -6,8 +6,12 @@ pol_list, wl_list), source apportioning ∝ power, selective fetch with
 direction reconstruction, section/optical length utilities.
 
 The arrays are filled in one shot from the device trace output, whose
-positions are f32 (the trace's working type).
+positions are f32 (the trace's working type). :meth:`RayStorage.fill` hands
+them out read-only and numbers the fill, so that the change detection
+(``crepr``) need not hash a gigabyte of sections before every image.
 """
+
+import itertools
 
 import numpy as np
 
@@ -21,10 +25,24 @@ def _normalize_rows(a):
         return a / n
 
 
+_fill_serial = itertools.count(1)     # one number a fill, over all storages of the process
+
+
+def _read_only(a):
+    """A read-only view: the storage's arrays cannot change in place, and
+    the array that a caller handed in keeps its own flags."""
+    a = a.view()
+    a.flags.writeable = False
+    return a
+
+
 class RayStorage(BaseClass):
+
+    _ARRAYS = ("p_list", "s0_list", "n_list", "pol_list", "w_list", "wl_list")
 
     def __init__(self, **kwargs) -> None:
         self._lock = False
+        self._fill_id = 0
         self.N_list = np.array([], dtype=int)
         self.B_list = np.array([], dtype=int)
         self.no_pol = False
@@ -62,16 +80,33 @@ class RayStorage(BaseClass):
         self.ray_source_list = ray_source_list
 
     def fill(self, p, w, pol, n, wl, s0) -> None:
-        """Store the device trace output (host numpy copies)."""
-        self.p_list = np.asarray(p, dtype=np.float64)
-        self.w_list = np.asarray(w, dtype=np.float32)
-        self.n_list = np.asarray(n, dtype=np.float64)
-        self.wl_list = np.asarray(wl, dtype=np.float32)
-        self.s0_list = np.asarray(s0, dtype=np.float64)
+        """Store the device trace output (host numpy copies, read-only)."""
+        self.p_list = _read_only(np.asarray(p, dtype=np.float64))
+        self.w_list = _read_only(np.asarray(w, dtype=np.float32))
+        self.n_list = _read_only(np.asarray(n, dtype=np.float64))
+        self.wl_list = _read_only(np.asarray(wl, dtype=np.float32))
+        self.s0_list = _read_only(np.asarray(s0, dtype=np.float64))
         if self.no_pol:
             self.pol_list = np.broadcast_to(np.nan, self.p_list.shape)
         else:
-            self.pol_list = np.asarray(pol, dtype=np.float32)
+            self.pol_list = _read_only(np.asarray(pol, dtype=np.float32))
+        self._fill_id = next(_fill_serial)
+
+    def crepr(self):
+        """State for the change detection. A read-only array stands by its
+        shape, its type and the number of the fill that made it, which no
+        other fill shares; an array that someone made writeable again is
+        hashed by its content, like every other value."""
+        out = [type(self).__name__]
+        for key in sorted(self.__dict__):
+            if key.startswith("_lock") or key.startswith("_new_lock"):
+                continue
+            val = self.__dict__[key]
+            if key in self._ARRAYS and isinstance(val, np.ndarray) and not val.flags.writeable:
+                out.append((key, (val.shape, str(val.dtype), self._fill_id)))
+            else:
+                out.append((key, self._crepr_value(val)))
+        return tuple(out)
 
     # ------------------------------------------------------------------
     @staticmethod

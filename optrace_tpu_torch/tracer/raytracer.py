@@ -5,29 +5,36 @@ sampled collision detection and the sequential trace with INFOS warning
 counters. The trace runs eagerly on one device (``device=None`` is the CUDA
 device; the CPU only on request), rays are generated on that device from a
 ``torch.Generator``, and the stored sections come back as host numpy arrays
-in :class:`RayStorage`. ``detector_image`` searches the stored f64
-sections for the detector hits on the same device and bins them into a
-:class:`RenderImage`.
+in :class:`RayStorage`. The f32 tensors of the last trace also stay on the
+device: ``detector_image``, ``detector_spectrum``, ``source_image`` and
+``source_spectrum`` read them there, search the detector hits in f64 and bin
+them on the same device, and return host objects. ``iterative_render`` and
+``render_huge`` stream batch after batch through the fused render
+(``parallel/render.py``) and store no sections.
 
-Not ported yet (see ROADMAP): ``detector_spectrum``, ``source_image`` and
-``source_spectrum``, ``iterative_render``/``render_huge``, ``focus_search``.
+Not ported yet (see ROADMAP.md): ``render_huge`` over several devices
+(``mesh``), ``focus_search``.
 """
 
+import warnings
 from enum import IntEnum
 from typing import Any
 
 import numpy as np
 import torch
 
-from .detector import detector_hits, build_segment_mask
+from .detector import detector_hits, build_segment_mask, sphere_projection_xy
 from .ray_storage import RayStorage
 from .scene_compile import compile_surface
-from .trace_core import TraceStep, trace_bundle, RunPlans
-from ..geometry import (Group, Lens, Aperture, Detector, Surface, RingSurface, SlitSurface,
-                        SphericalSurface, RectangularSurface, Point, Line)
+from .trace_core import TraceStep, trace_bundle, RunPlans, N_INFOS
+from ..geometry import (Group, Lens, IdealLens, Filter, Aperture, Detector, RaySource,
+                        Surface, RingSurface, SlitSurface, SphericalSurface,
+                        RectangularSurface, Point, Line)
 from ..image.render_image import RenderImage
 from ..spectrum.refraction_index import RefractionIndex
+from ..spectrum.light_spectrum import LightSpectrum
 from ..utils.device import resolve_device
+from ..utils.global_options import global_options
 from ..utils.property_checker import PropertyChecker as pc
 from ..utils.progress_bar import ProgressBar
 from ..utils.warnings import warning
@@ -63,6 +70,7 @@ class Raytracer(Group):
         self.geometry_error = False
         self._last_trace_snapshot = None
         self._compiled = None       # (elements, snapshot key, steps, RunPlans) of the last trace
+        self._dev_sections = None   # (rays.p_list, p, w, wl): the last trace's f32 device tensors
         self.fault_pos = np.array([])
         self._seed_counter = 0
 
@@ -94,6 +102,7 @@ class Raytracer(Group):
     def clear(self) -> None:
         super().clear()
         self.rays.__init__()
+        self._dev_sections = None
 
     # ------------------------------------------------------------------
     # snapshots / change detection
@@ -118,21 +127,22 @@ class Raytracer(Group):
         return diff
 
     def check_if_rays_are_current(self) -> bool:
-        if self._last_trace_snapshot is None:
-            return False
-        now = self.tracing_snapshot()
-        return not self.compare_property_snapshot(self._last_trace_snapshot, now)["Any"]
+        current = self._last_trace_snapshot is not None and not self.compare_property_snapshot(
+            self._last_trace_snapshot, self.tracing_snapshot())["Any"]
+        if not current:
+            self._dev_sections = None       # stale sections are of no use on the device either
+        return current
 
     # ------------------------------------------------------------------
     # geometry checks
 
     def _tracing_elements(self) -> list:
-        """z-sorted [Lens|Aperture] plus the implicit end absorber at the
-        outline z-end."""
+        """z-sorted [Lens|Filter|Aperture] plus the implicit end absorber at
+        the outline z-end."""
         o = self.outline
         end_filter = Aperture(RectangularSurface(dim=[o[1] - o[0], o[3] - o[2]]),
                               pos=[(o[1] + o[0]) / 2, (o[2] + o[3]) / 2, o[5]])
-        elements = [el for el in self.elements if isinstance(el, (Lens, Aperture))]
+        elements = [el for el in self.elements if isinstance(el, (Lens, Filter, Aperture))]
         return elements + [end_filter]
 
     @staticmethod
@@ -211,7 +221,7 @@ class Raytracer(Group):
                 coll, xc, yc, zc = self.check_collision(el.back, elements[i + 1].front)
 
             if self.use_hurb and i < len(elements) - 1 and isinstance(el, Aperture):
-                if not isinstance(el.front, RingSurface):
+                if not isinstance(el.front, (RingSurface, SlitSurface)):
                     warning(f"Ray bending for surface type {type(el.front).__name__} not implemented.")
                     self.geometry_error = True
                     return
@@ -263,13 +273,21 @@ class Raytracer(Group):
             return tuple(float(v) for v in surf.pos)
 
         for el in self._tracing_elements():
-            if isinstance(el, Lens):
+            if isinstance(el, IdealLens):
+                n2 = el.n2 if el.n2 is not None else self.n0
+                steps.append(TraceStep(compile_surface(el.front, device, dtype), "ideal",
+                                       n1_fn=n_before, n2_fn=n2, D=el.D, pos_host=ph(el.front)))
+                n_before = n2
+            elif isinstance(el, Lens):
                 n2 = el.n2 if el.n2 is not None else self.n0
                 steps.append(TraceStep(compile_surface(el.front, device, dtype), "refract",
                                        n1_fn=n_before, n2_fn=el.n, pos_host=ph(el.front)))
                 steps.append(TraceStep(compile_surface(el.back, device, dtype), "refract",
                                        n1_fn=el.n, n2_fn=n2, pos_host=ph(el.back)))
                 n_before = n2
+            elif isinstance(el, Filter):
+                steps.append(TraceStep(compile_surface(el.front, device, dtype), "filter",
+                                       spectrum_fn=el.spectrum, pos_host=ph(el.front)))
             elif isinstance(el, Aperture):
                 kind = "ring" if isinstance(el.front, RingSurface) \
                     else ("slit" if isinstance(el.front, SlitSurface) else "")
@@ -283,13 +301,14 @@ class Raytracer(Group):
         with it (``trace_core.RunPlans``). Both are kept from one trace to
         the next and built anew as soon as the scene differs: another
         element object in the list, or another snapshot of the lenses,
-        apertures, outline, ambient medium or device (the change detector
+        filters, apertures, outline, ambient medium or device (the change detector
         that ``check_if_rays_are_current`` trusts). The kept elements stay
         referenced, so no object that the snapshot names by identity can be
         freed and replaced unnoticed."""
         elements = self._tracing_elements()[:-1]    # the end absorber follows from the outline
         snap = self.tracing_snapshot()
-        key = (snap["Lenses"], snap["Apertures"], snap["Ambient"], str(self.device))
+        key = (snap["Lenses"], snap["Filters"], snap["Apertures"], snap["Ambient"],
+               str(self.device))
         kept = self._compiled
         if (kept is None or kept[1] != key or len(kept[0]) != len(elements)
                 or any(a is not b for a, b in zip(kept[0], elements))):
@@ -324,10 +343,11 @@ class Raytracer(Group):
         nt = len(self.tracing_surfaces) + 2
         if self.rays.storage_size(N, nt, self.no_pol) > self.MAX_RAY_STORAGE_RAM:
             raise RuntimeError(f"More than {self.MAX_RAY_STORAGE_RAM * 1e-9:.1f} GB RAM requested. "
-                               "Either decrease the number of rays or surfaces, "
-                               "or increase Raytracer.MAX_RAY_STORAGE_RAM.")
+                               "Either decrease the number of rays, surfaces or do an iterative "
+                               "render, or increase Raytracer.MAX_RAY_STORAGE_RAM.")
 
         bar = ProgressBar("Raytracing: ", 3)
+        self._dev_sections = None
         self.rays.init(self.ray_sources, N, nt, self.no_pol, seed=self._seed_counter)
 
         steps, plans = self._trace_steps()
@@ -342,6 +362,7 @@ class Raytracer(Group):
             out = trace_bundle(steps, self.n0, tuple(float(v) for v in self.outline),
                                p, s, pols, w, wl, self.no_pol, self.use_hurb, gen=gen,
                                hurb_factor=float(self.HURB_FACTOR), plans=plans)
+        kept = (out["p"], out["w"], out["wl"])
         out = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
                for k, v in out.items() if k in ("p", "w", "pol", "n", "wl", "infos")}
         bar.update()
@@ -352,6 +373,9 @@ class Raytracer(Group):
             s0 = np.where(norm > 0, s0 / norm, s0)
         self.rays.fill(out["p"], out["w"], out["pol"], out["n"], out["wl"], s0)
         self.rays.lock()
+        # the device tensors belong to this very host array: a storage that
+        # is filled anew by other means no longer matches them
+        self._dev_sections = (self.rays.p_list, *kept)
 
         self._msgs = np.asarray(out["infos"], dtype=int)
         self._show_messages(N)
@@ -367,7 +391,7 @@ class Raytracer(Group):
         for type_, els in zip(["Lens", "Aperture", "Filter"],
                               [self.lenses, self.apertures, self.filters]):
             for i, el in enumerate(els):
-                if not el.has_back():
+                if not el.has_back() or isinstance(el, IdealLens):
                     names[f"surface of {type_} {el.abbr}{i}"] = el.pos[2]
                 else:
                     names[f"front surface of {type_} {el.abbr}{i}"] = el.front.pos[2]
@@ -428,56 +452,77 @@ class Raytracer(Group):
 
         dsurf = self.detectors[detector_index].surface
         det_zmin = float(dsurf.z_min)
-        wl = np.asarray(self.rays.wl_list[Ns:Ne])
         seg_mask = build_segment_mask(self._section_z_bounds(), det_zmin, float(dsurf.z_max))
 
-        # the stored sections are f64: keep that precision through the hit
-        # solve, on the raytracer's device (a once-per-image step; the
-        # fused streaming render never comes through here and stays f32)
+        # the hit solve runs in f64 on the raytracer's device (a
+        # once-per-image step; the fused streaming render never comes
+        # through here and stays f32), and so does the selection of the
+        # hits: only the extent and the ill-conditioned count reach the host
         with torch.no_grad():
             sfns = compile_surface(dsurf, self.device, dtype=torch.float64)
-            p_all = torch.as_tensor(np.asarray(self.rays.p_list[Ns:Ne], dtype=np.float64),
-                                    device=self.device)
-            w_all = torch.as_tensor(np.asarray(self.rays.w_list[Ns:Ne], dtype=np.float64),
-                                    device=self.device)
-            ph, w, ish, n_ill = (t.cpu().numpy() for t in detector_hits(
-                sfns, det_zmin, p_all, w_all, segment_mask=seg_mask))
-        bar.update()
+            p_all, w_all, wl = self._sections(Ns, Ne)
+            ph, w, ish, n_ill = detector_hits(sfns, det_zmin, p_all, w_all, segment_mask=seg_mask)
+            del p_all, w_all
+            bar.update()
 
-        hitw = ish & (w > 0)
-        ph, w, wl = ph[hitw].astype(np.float64), w[hitw], wl[hitw]
-        ill_count = int(n_ill)
+            hitw = ish & (w > 0)
+            ph, w, wl = ph[hitw], w[hitw], wl[hitw]
+            ill_count = int(n_ill)
 
-        if isinstance(dsurf, SphericalSurface) and projection_method is not None:
-            ph = dsurf.sphere_projection(ph, projection_method)
-            projection = projection_method
-        else:
-            projection = None
+            if isinstance(dsurf, SphericalSurface) and projection_method is not None:
+                x, y = sphere_projection_xy(ph[:, 0], ph[:, 1], ph[:, 2],
+                                            tuple(float(v) for v in dsurf.pos), float(dsurf.R),
+                                            projection_method)
+                ph = torch.stack([x, y, ph[:, 2]], dim=-1)
+                projection = projection_method
+            else:
+                projection = None
 
-        if isinstance(extent, (list, np.ndarray)):
-            inside = (extent[0] <= ph[:, 0]) & (ph[:, 0] <= extent[1]) \
-                & (extent[2] <= ph[:, 1]) & (ph[:, 1] <= extent[3])
-            extent_out = np.asarray(np.array(extent).copy(), dtype=np.float64)
-            pc.check_finite("extent", extent_out)
-            ph, w, wl = ph[inside], w[inside], wl[inside]
-        elif extent is None:
-            extent_out = self.detectors[detector_index].pos[:2].repeat(2)
-            if np.any(hitw):
-                extent_out[[0, 2]] = np.min(ph[:, :2], axis=0)
-                extent_out[[1, 3]] = np.max(ph[:, :2], axis=0)
-        else:
-            raise ValueError(f"Invalid extent '{extent}'.")
+            if isinstance(extent, (list, np.ndarray)):
+                inside = (extent[0] <= ph[:, 0]) & (ph[:, 0] <= extent[1]) \
+                    & (extent[2] <= ph[:, 1]) & (ph[:, 1] <= extent[3])
+                extent_out = np.asarray(np.array(extent).copy(), dtype=np.float64)
+                pc.check_finite("extent", extent_out)
+                ph, w, wl = ph[inside], w[inside], wl[inside]
+            elif extent is None:
+                extent_out = self.detectors[detector_index].pos[:2].repeat(2)
+                if ph.shape[0]:
+                    mn, mx = ph[:, :2].amin(dim=0), ph[:, :2].amax(dim=0)
+                    extent_out[:] = torch.stack([mn[0], mx[0], mn[1], mx[1]]).tolist()
+            else:
+                raise ValueError(f"Invalid extent '{extent}'.")
 
         return ph, w, wl, extent_out, projection, bar, ill_count
 
+    def _sections(self, Ns: int, Ne: int):
+        """Stored sections of the rays Ns … Ne on the raytracer's device:
+        positions (n, nt, 3) and weights (n, nt) in f64, wavelengths (n,)
+        in f32. They come from the tensors that :meth:`trace` kept; a
+        storage that was filled by other means is uploaded. Both give the
+        same numbers: the host's f64 sections are exact images of the f32
+        values on the device."""
+        kept = self._dev_sections
+        if kept is not None and kept[0] is self.rays.p_list:
+            p, w, wl = (t[Ns:Ne] for t in kept[1:])
+            return p.to(torch.float64), w.to(torch.float64), wl
+        self._dev_sections = None
+
+        def up(a, dtype):
+            with warnings.catch_warnings():     # the stored arrays are read-only, and only read here
+                warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+                return torch.as_tensor(np.asarray(a, dtype=dtype), device=self.device)
+        return (up(self.rays.p_list[Ns:Ne], np.float64), up(self.rays.w_list[Ns:Ne], np.float64),
+                up(self.rays.wl_list[Ns:Ne], np.float32))
+
     # ------------------------------------------------------------------
-    # image rendering
+    # image / spectrum rendering
 
     def detector_image(self, detector_index: int = 0, source_index: int = None,
                        extent=None, limit: float = None,
                        projection_method: str = "Equidistant", **kwargs) -> RenderImage:
-        """Render the detector image from the stored trace. The hit search
-        and the binning run on the raytracer's device."""
+        """Render the detector image from the stored trace. The hit search,
+        the selection of the hits and the binning run on the raytracer's
+        device."""
         if limit is not None and extent is not None and "_dont_filter" not in kwargs:
             warning("Using the limit parameter with a user defined extent will produce an "
                     "incorrect detector image, as rays outside the extent are not convolved.")
@@ -498,4 +543,251 @@ class Raytracer(Group):
         if ill_count:
             warning(f"{ill_count} rays ({100 * ill_count / self.rays.N:.3g}% of all rays) were "
                     f"ill-conditioned for hit finding at detector {detector_index}.")
+        return img
+
+    def detector_spectrum(self, detector_index: int = 0, source_index: int = None,
+                          extent=None, **kwargs) -> LightSpectrum:
+        """Render the spectrum of the light on a detector from the stored trace."""
+        p, w, wl, extent, _, bar, ill_count = \
+            self._hit_detector("Detector Spectrum", detector_index, source_index, extent)
+        detector = self.detectors[detector_index]
+        pname = f": {detector.desc}" if detector.desc != "" else ""
+        desc = f"{Detector.abbr}{detector_index}{pname} at z = {detector.pos[2]:.5g} mm"
+        desc = (f"Spectrum of RS{source_index} at " if source_index is not None else "Spectrum at ") + desc
+        spec = LightSpectrum.render(wl, w, long_desc=desc, **kwargs)
+        bar.finish()
+        return spec
+
+    def _hit_source(self, info: str, source_index: int = 0):
+        if not self.ray_sources:
+            raise RuntimeError("Ray Sources Missing.")
+        if not self.rays.N:
+            raise RuntimeError("No rays traced.")
+        if source_index > len(self.ray_sources) - 1 or source_index < 0:
+            raise IndexError("Invalid source_index.")
+        if not self.check_if_rays_are_current():
+            raise RuntimeError("Tracing geometry/properties changed. Please retrace first.")
+
+        bar = ProgressBar(f"{info}: ", 2)
+        extent = self.ray_sources[source_index].extent[:4]
+        Ns, Ne = self.rays.B_list[source_index:source_index + 2]
+        p, w, wl = self._sections(Ns, Ne)
+        bar.update()
+        return p[:, 0], w[:, 0], wl, extent, bar
+
+    def source_spectrum(self, source_index: int = 0, **kwargs) -> LightSpectrum:
+        """Render the spectrum of one source from the stored trace."""
+        p, w, wl, extent, bar = self._hit_source("Source Spectrum", source_index)
+        rs = self.ray_sources[source_index]
+        pname = f": {rs.desc}" if rs.desc != "" else ""
+        desc = f"Spectrum of {RaySource.abbr}{source_index}{pname} at z = {rs.pos[2]:.5g} mm"
+        spec = LightSpectrum.render(wl, w, long_desc=desc, **kwargs)
+        bar.finish()
+        return spec
+
+    def source_image(self, source_index: int = 0, limit: float = None, **kwargs) -> RenderImage:
+        """Render the image of one source from the stored trace; the
+        binning runs on the raytracer's device."""
+        p, w, wl, extent, bar = self._hit_source("Source Image", source_index)
+        rs = self.ray_sources[source_index]
+        pname = f": {rs.desc}" if rs.desc != "" else ""
+        desc = f"{RaySource.abbr}{source_index}{pname} at z = {rs.pos[2]:.5g} mm"
+        img = RenderImage(long_desc=desc, extent=extent, projection=None)
+        img.render(p, w, wl, limit=limit, device=self.device, **kwargs)
+        bar.finish()
+        return img
+
+    # ------------------------------------------------------------------
+    # iterative (batched) rendering
+
+    def iterative_render(self, N, detector_index=0, limit=None,
+                         projection_method="Equidistant", pos=None, extent=None) -> list:
+        """Accumulate detector images over ITER_RAYS_STEP-sized traces. The
+        first batch is a stored trace, which fixes the automatic extents;
+        the others go through the fused streaming render, are summed on the
+        device and reach the host once, at the end."""
+        if not self.ray_sources:
+            raise RuntimeError("Ray Source(s) Missing.")
+        if not self.detectors:
+            raise RuntimeError("Detector(s) Missing.")
+        if (N := int(N)) <= 0:
+            raise ValueError(f"Ray number N_rays needs to be a positive int, but is {N}.")
+
+        if pos is None:
+            if isinstance(detector_index, list):
+                raise ValueError("detector_index list needs to have the same length as pos list")
+            pos = [self.detectors[detector_index].pos]
+        elif isinstance(pos, list) and not isinstance(pos[0], (list, np.ndarray)):
+            pos = [pos]
+
+        if not isinstance(detector_index, list):
+            detector_index = [detector_index] * len(pos)
+        elif len(detector_index) != len(pos):
+            raise ValueError("detector_index list needs to have the same length as pos list")
+        if not isinstance(limit, list):
+            limit = [limit] * len(pos)
+        elif len(limit) != len(pos):
+            raise ValueError("limit list needs to have the same length as pos list")
+        if not isinstance(projection_method, list):
+            projection_method = [projection_method] * len(pos)
+        elif len(projection_method) != len(pos):
+            raise ValueError("projection_method list needs to have the same length as pos list")
+        if not isinstance(extent, list) or isinstance(extent[0], (int, float)):
+            extent = [extent] * len(pos)
+        elif len(extent) != len(pos):
+            raise ValueError("extent list needs to have the same length as pos list")
+        extentc = list(extent).copy()
+
+        rays_step = self.ITER_RAYS_STEP
+        iterations = max(1, int(N / rays_step))
+        bar = ProgressBar("Rendering: ", iterations)
+
+        DIm_res = []
+        if self._pretrace_check(min(rays_step, N)):
+            raise RuntimeError("Geometry checks failed. Tracing aborted. Check the warnings.")
+
+        nt = len(self.tracing_surfaces) + 2
+        msgs_cum = np.zeros((N_INFOS, nt), dtype=int)
+
+        # batch 1 through the stored-section path: it determines the auto
+        # extents and builds the RenderImage headers
+        first_step = rays_step + (int(N - iterations * rays_step) if iterations == 1 else 0)
+        with global_options.no_warnings(), global_options.no_progress_bar():
+            self.trace(N=first_step)
+            if self._msgs.shape == msgs_cum.shape:
+                msgs_cum += self._msgs
+
+        for j in range(len(pos)):
+            self.detectors[detector_index[j]].move_to(pos[j])
+            with global_options.no_progress_bar(), global_options.no_warnings():
+                Imi = self.detector_image(detector_index=detector_index[j],
+                                          extent=extentc[j], limit=limit[j], _dont_filter=True,
+                                          projection_method=projection_method[j])
+            Imi._data *= first_step / N
+            DIm_res.append(Imi)
+            extentc[j] = Imi._extent0
+        bar.update()
+
+        # the remaining batches run the fused streaming path: source → trace
+        # → detector sink → bin for each batch, O(rays_step) memory, and no
+        # host round trip but for the INFOS counters
+        if iterations > 1:
+            from ..parallel.render import make_fused_render_multi
+            from ..parallel.checkpoint import batch_generator
+            self._dev_sections = None       # the stored trace has served; free its device memory
+
+            def build(nrays):
+                # pos goes INTO the config so make_fused_render_multi moves
+                # the detector before capturing each sink: one detector at
+                # several positions must bind each position, not the last
+                configs = [dict(detector_index=detector_index[j],
+                                pos=pos[j],
+                                extent=tuple(DIm_res[j].extent),
+                                filter_extent=tuple(extentc[j]),
+                                projection_method=projection_method[j],
+                                Ny=DIm_res[j]._data.shape[0],
+                                Nx=DIm_res[j]._data.shape[1])
+                           for j in range(len(pos))]
+                return make_fused_render_multi(self, nrays, configs, device=self.device)[0]
+
+            step_fn = build(rays_step)
+            base_seed = 0x17E7 + self._seed_counter
+            acc = [torch.zeros(DIm._data.shape, dtype=torch.float64, device=self.device)
+                   for DIm in DIm_res]
+            infos_acc = torch.zeros((N_INFOS, nt), dtype=torch.int64, device=self.device)
+            with torch.no_grad():
+                for i in range(1, iterations):
+                    ni = rays_step if i < iterations - 1 \
+                        else rays_step + int(N - iterations * rays_step)
+                    if ni != rays_step:
+                        step_fn = build(ni)
+                    imgs, infos = step_fn(batch_generator(base_seed, i, self.device))
+                    for j in range(len(pos)):
+                        acc[j] += imgs[j].to(torch.float64) * (ni / N)
+                    if infos.shape == infos_acc.shape:
+                        infos_acc += infos
+                    bar.update()
+            for j in range(len(pos)):
+                DIm_res[j]._data += acc[j].cpu().numpy()
+            msgs_cum += infos_acc.cpu().numpy()
+
+        for i, DIm in enumerate(DIm_res):
+            if limit[i] is not None:
+                DIm._limit = limit[i]
+                DIm._apply_rayleigh_filter()
+
+        bar.finish()
+        self._msgs = msgs_cum
+        self._show_messages(N)
+        return DIm_res
+
+    # ------------------------------------------------------------------
+    # huge renders: fused streaming batches, checkpointed
+
+    def render_huge(self, N, detector_index: int = 0, extent=None,
+                    limit: float = None, projection_method: str = "Equidistant",
+                    batch_size: int = None, mesh=None,
+                    checkpoint_path: str = None, checkpoint_every: int = 10) -> RenderImage:
+        """Render a detector image from 10⁸ rays and more in O(batch) memory.
+
+        Each batch is one source → trace → detector sink → bin pass of the
+        fused render; no ray sections are ever stored. With
+        ``checkpoint_path`` progress is saved every ``checkpoint_every``
+        batches and a later call resumes with the same remaining batches
+        (each batch has its own generator, see ``parallel/checkpoint.py``).
+
+        :param extent: fixed image extent; defaults to the detector
+            surface extent (an automatic extent would need a stored trace)
+        :param mesh: rendering over several devices is not ported yet
+        :return: accumulated RenderImage
+        """
+        if mesh is not None:
+            raise NotImplementedError("render_huge over several devices (mesh) is not ported yet: "
+                                      "see ROADMAP.md, the sharded render over torch.distributed")
+        if not self.detectors:
+            raise RuntimeError("Detector(s) Missing.")
+        if (N := int(N)) <= 0:
+            raise ValueError(f"Ray number N needs to be a positive int, but is {N}.")
+        if self._pretrace_check(min(N, self.ITER_RAYS_STEP)):
+            raise RuntimeError("Geometry checks failed. Tracing aborted. Check the warnings.")
+
+        from ..parallel.render import make_fused_render_multi
+        from ..parallel.checkpoint import RenderCheckpoint
+
+        batch = int(batch_size) if batch_size else min(N, self.ITER_RAYS_STEP)
+        n_batches = max(1, -(-N // batch))
+
+        detector = self.detectors[detector_index]
+        dsurf = detector.surface
+        ext = tuple(dsurf.extent[:4]) if extent is None else tuple(extent)
+
+        pname = f": {detector.desc}" if detector.desc != "" else ""
+        desc = f"{Detector.abbr}{detector_index}{pname} at z = {detector.pos[2]:.5g} mm"
+        img = RenderImage(long_desc=desc, extent=np.asarray(ext, dtype=np.float64),
+                          projection=projection_method
+                          if isinstance(dsurf, SphericalSurface) else None)
+        img.render(limit=limit, _dont_filter=True)   # fix extent, alloc zeros
+        Ny, Nx, _ = img._data.shape
+
+        render, _ = make_fused_render_multi(
+            self, batch, [dict(detector_index=detector_index,
+                               extent=tuple(img.extent),
+                               projection_method=projection_method,
+                               Nx=Nx, Ny=Ny)], device=self.device)
+
+        ck = RenderCheckpoint(checkpoint_path, n_batches)
+        bar = ProgressBar("Rendering: ", n_batches - ck.done)
+        with torch.no_grad():
+            for i in ck.remaining():
+                ck.add(render(ck.generator(i, self.device))[0][0])
+                if checkpoint_path and (i % checkpoint_every == checkpoint_every - 1):
+                    ck.save()
+                bar.update()
+        if checkpoint_path:
+            ck.save()
+        bar.finish()
+
+        img._data += ck.image()
+        if limit is not None:
+            img._apply_rayleigh_filter()
         return img

@@ -175,25 +175,30 @@ def steps_from_numpy(spec: list, device, dtype=torch.float32) -> list:
     ``pos_host`` (f64 vertex position), ``params`` (dict of numpy values:
     ``pos, rho, k, r, ri, hw, hh, hwi, hhi, angle, coeff, normal, z_min_rel,
     z_max_rel``, whichever the kind has) and, for
-    refract steps, ``n1``/``n2`` as ``RefractionIndex`` constructor keyword
-    dicts (``n_type`` plus ``coeff`` or ``n, V, lines``). Two steps that
+    refract and ideal steps, ``n1``/``n2`` as ``RefractionIndex`` constructor
+    keyword dicts (``n_type`` plus ``coeff`` or ``n, V, lines``). An ideal
+    step also gives ``D`` (optical power in dpt), a filter step ``spectrum``
+    as ``TransmissionSpectrum`` constructor keywords (``spectrum_type``,
+    ``inverse`` and the type's own values). Two steps that
     share a medium give the same dict object, or equal dicts: equal media
     become one ``RefractionIndex``, as a scene built from the public
     classes shares them.
     """
     from .trace_core import TraceStep
     from ..spectrum.refraction_index import RefractionIndex
+    from ..spectrum.transmission_spectrum import TransmissionSpectrum
 
     media = {}
+
+    def plain(v):
+        return list(np.asarray(v).tolist()) if isinstance(v, (np.ndarray, list, tuple)) else v
 
     def medium(desc):
         if desc is None:
             return None
         key = repr(sorted((k, np.asarray(v).tolist()) for k, v in desc.items()))
         if key not in media:
-            kw = {k: (list(np.asarray(v).tolist()) if isinstance(v, (np.ndarray, list, tuple))
-                      else v) for k, v in desc.items()}
-            media[key] = RefractionIndex(**kw)
+            media[key] = RefractionIndex(**{k: plain(v) for k, v in desc.items()})
         return media[key]
 
     steps = []
@@ -202,7 +207,10 @@ def steps_from_numpy(spec: list, device, dtype=torch.float32) -> list:
         pos_host = tuple(float(v) for v in d["pos_host"]) if d.get("pos_host") is not None else None
         hurb_kind = {"ring": "ring", "slit": "slit"}.get(d["kind"], "") \
             if d["action"] == "absorb" else ""
+        spectrum = TransmissionSpectrum(**{k: plain(v) for k, v in d["spectrum"].items()}) \
+            if d.get("spectrum") is not None else None
         steps.append(TraceStep(sfns, d["action"], n1_fn=medium(d.get("n1")),
-                               n2_fn=medium(d.get("n2")), hurb=bool(hurb_kind),
+                               n2_fn=medium(d.get("n2")), spectrum_fn=spectrum,
+                               D=float(d.get("D", 0.0)), hurb=bool(hurb_kind),
                                hurb_kind=hurb_kind, pos_host=pos_host))
     return steps

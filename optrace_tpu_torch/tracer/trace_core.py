@@ -8,7 +8,9 @@ Physics per step:
 - vectorial Snell + Fresnel transmission with polarization projection,
   TIR → absorbed + counted
 - polarization transport in the s/p decomposition
-- aperture absorption
+- ideal-lens refraction
+- filter transmission / aperture absorption with optional HURB
+  edge-diffraction bending
 - outline-box escape absorption
 - "Broken sequentiality" / miss / ill-conditioned bookkeeping (INFOS)
 
@@ -21,10 +23,11 @@ refractions on tilted planes and the aperture absorbers between them;
 :func:`_run_step` is the one predicate that decides. The plain version runs
 every kind that the kernel runs, so a run that must take the plain version
 keeps its partition: nothing here re-partitions a run at dispatch. Ideal
-lenses, filters and HURB edge diffraction are not ported yet and raise
-``NotImplementedError``.
+lenses, filters and apertures that bend rays (HURB edge diffraction) are
+single steps of eager tensor operations between the runs.
 """
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -47,9 +50,9 @@ HURB_FACTOR = np.sqrt(2.0)
 class TraceStep(NamedTuple):
     """One light-interacting surface in the unrolled trace."""
     sfns: SurfaceFns
-    action: str                      # "refract" | "absorb" ("ideal" | "filter": not ported)
+    action: str                      # "refract" | "ideal" | "filter" | "absorb"
     n1_fn: Optional[Callable] = None  # wl -> n before surface (refract)
-    n2_fn: Optional[Callable] = None  # wl -> n after surface (refract)
+    n2_fn: Optional[Callable] = None  # wl -> n after surface (refract/ideal)
     spectrum_fn: Optional[Callable] = None   # wl -> T (filter)
     D: float = 0.0                   # optical power in dpt (ideal)
     hurb: bool = False               # HURB bending at this aperture
@@ -165,10 +168,89 @@ def _refract_core(n, n1, n2, s, w, pols, hit, no_pol):
     return s_new, w_new, pols_new, torch.count_nonzero(tir & hit)
 
 
+def _refract_ideal(step: TraceStep, p_new, s, pols, hit, no_pol):
+    """Ideal-lens refraction: focuses to the paraxial image plane without
+    aberrations. f in mm = 1000/D[dpt]."""
+    f = 1000.0 / step.D
+    fsz = f / s[:, 2]
+    sx = s[:, 0] * fsz - p_new[:, 0]
+    sy = s[:, 1] * fsz - p_new[:, 1]
+    s_ = torch.stack([sx, sy, torch.full_like(sx, f)], dim=-1)
+    s_ = normalize_safe(s_) * math.copysign(1.0, f)
+
+    _, _, pols_new = _compute_polarization(s, s_, pols, hit, no_pol)
+    s_new = torch.where(hit[:, None], s_, s)
+    return s_new, pols_new
+
+
+def _hurb_normals(gen, N: int, device, dtype):
+    """The two standard normals a ray that a HURB step consumes: one draw
+    for the tangent direction ``a``, then one for ``b``. The HURB steps of
+    a trace draw one after the other in step order."""
+    return (torch.randn(N, generator=gen, device=device, dtype=dtype),
+            torch.randn(N, generator=gen, device=device, dtype=dtype))
+
+
+def _hurb(step: TraceStep, normals, p_new, s, w, wl, n_amb, pols, bend_candidates, no_pol,
+          factor: float = HURB_FACTOR):
+    """Heisenberg-uncertainty ray bending at a Ring/Slit aperture opening:
+    tangent-direction Gaussian perturbation with
+    tanσ = HURB_FACTOR/(2·a·cosψ·k). A pure function of ``normals``, the
+    pair of standard-normal tensors from :func:`_hurb_normals`."""
+    params = step.sfns.params
+    x, y = p_new[:, 0], p_new[:, 1]
+    zero = torch.zeros_like(x)
+
+    if step.hurb_kind == "ring":
+        R = params["ri"]
+        r = torch.sqrt(x * x + y * y)
+        theta = torch.atan2(y, x)
+        b_ = R - r
+        a_ = torch.sqrt(torch.clamp(b_ * R, min=0.0))
+        b_vec = torch.stack([torch.cos(theta), torch.sin(theta), zero], dim=-1)
+        inside = r < R
+    else:   # slit
+        ang = params["angle"]
+        c, sn = torch.cos(ang), torch.sin(ang)
+        x_, y_ = x * c + y * sn, -x * sn + y * c
+        a_ = params["hhi"] - torch.abs(y_)
+        b_ = params["hwi"] - torch.abs(x_)
+        inside = (a_ > 0) & (b_ > 0)
+        b_vec = torch.stack([c * torch.ones_like(x), sn * torch.ones_like(x), zero], dim=-1)
+
+    bend = bend_candidates & inside
+
+    a_vec = torch.stack([-b_vec[:, 1], b_vec[:, 0], zero], dim=-1)
+    cpa2 = 1.0 - rdot(s, a_vec) ** 2
+    cpb2 = 1.0 - rdot(s, b_vec) ** 2
+    cos_psi_a = torch.sqrt(torch.where(cpa2 > 1e-12, cpa2, 1e-12))
+    cos_psi_b = torch.sqrt(torch.where(cpb2 > 1e-12, cpb2, 1e-12))
+
+    k = 2.0 * math.pi * n_amb / (wl * 1e-9)
+    safe_a = torch.where(a_ > 0, a_, 1.0)
+    safe_b = torch.where(b_ > 0, b_, 1.0)
+    tan_sig_a = factor / (2.0 * safe_a * cos_psi_a * 1e-3 * k)
+    tan_sig_b = factor / (2.0 * safe_b * cos_psi_b * 1e-3 * k)
+
+    tan_tha = normals[0] * torch.abs(tan_sig_a)
+    tan_thb = normals[1] * torch.abs(tan_sig_b)
+
+    sa_dir = normalize_safe(cross(b_vec, s))
+    sb_dir = cross(s, sa_dir)
+    sab = s + sa_dir * tan_tha[:, None] + sb_dir * tan_thb[:, None]
+    s_new = torch.where(bend[:, None], normalize_safe(sab), s)
+
+    neg = (s_new[:, 2] < 0) & bend
+    w_new = torch.where(neg, 0.0, w)
+
+    _, _, pols_new = _compute_polarization(s, s_new, pols, bend, no_pol)
+    return s_new, w_new, pols_new, torch.count_nonzero(neg)
+
+
 # ----------------------------------------------------------------------
 # runs: consecutive steps that the run kernel holds collapse into ONE call
 # of ops.cuda_run.conic_run (one kernel launch on a CUDA device). Steps of
-# another kind (generic surfaces, apertures with HURB), the cheap planar
+# another kind (ideal lenses, filters, apertures with HURB), the cheap planar
 # steps unless cuda_fuse_planar asks for them, and steps consumed by a
 # streaming sink stay unrolled; real systems are dominated by conic runs.
 
@@ -440,7 +522,9 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
     :param n0_fn: ambient index wl -> n
     :param outline: 6-element outline box
     :param p, s, pols, w, wl: initial ray state from the sources
-    :param gen: ``torch.Generator`` for HURB (not ported yet)
+    :param gen: ``torch.Generator`` on the device of ``p`` that the HURB
+        steps draw their normals from (:func:`_hurb_normals`); without one,
+        a generator seeded with 0 is made
     :param sinks: optional list of (update_fn, init_carry) or
         (update_fn, init_carry, seg_mask) streaming consumers. After each
         step, ``carry = update_fn(j, p_prev, p_new, w_prev, carry)`` is
@@ -462,16 +546,13 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
              sections — plus "sinks": final sink carries.
     """
     for st in steps:
-        if st.action in ("ideal", "filter"):
-            raise NotImplementedError(
-                f"'{st.action}' steps are not ported yet (ROADMAP: ideal/filter/HURB steps)")
-        if st.action not in ("refract", "absorb"):
+        if st.action not in ("refract", "ideal", "filter", "absorb"):
             raise RuntimeError(f"unknown action {st.action}")
-    if use_hurb and any(st.hurb for st in steps):
-        raise NotImplementedError(
-            "HURB edge diffraction is not ported yet (ROADMAP: ideal/filter/HURB steps)")
 
     dev = p.device
+    if gen is None and use_hurb and any(st.hurb for st in steps):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
     np_dtype = np.float64 if p.dtype == torch.float64 else np.float32
     sections_p = [p]
     sections_w = [w]
@@ -548,8 +629,22 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
             s, w, pols, n_tir = _refract(step, p, s, w, wl, pols, hit, no_pol)
             info[TIR] += n_tir
             n_after = step.n2_fn(wl)
+        elif step.action == "ideal":
+            miss = hw & ~hit
+            w = torch.where(miss, 0.0, w)
+            info[ABSORB_MISSING] += torch.count_nonzero(miss)
+            s, pols = _refract_ideal(step, p, s, pols, hit, no_pol)
+            n_after = step.n2_fn(wl)
+        elif step.action == "filter":
+            w = torch.where(hit, w * step.spectrum_fn(wl), w)
+            n_after = n_amb_last
         else:   # absorb
             w = torch.where(hit, 0.0, w)
+            if use_hurb and step.hurb:
+                s, w, pols, n_neg = _hurb(step, _hurb_normals(gen, p.shape[0], dev, p.dtype),
+                                          p, s, w, wl, n_amb_last, pols, hw & ~hit, no_pol,
+                                          hurb_factor)
+                info[HURB_NEG_DIR] += n_neg
             n_after = n_amb_last
 
         p, w, n_out = _outline_intersection(p_prev, p, s, w, out_rel)

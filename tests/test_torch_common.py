@@ -54,6 +54,23 @@ def medium_desc(ri):
     return dict(n_type=st, coeff=[float(c) for c in ri.coeff])
 
 
+def spectrum_desc(sp):
+    """TransmissionSpectrum (JAX package) → constructor keywords for the port."""
+    st = sp.spectrum_type
+    d = dict(spectrum_type=st, inverse=bool(sp.inverse))
+    if st == "Constant":
+        d.update(val=float(sp.val))
+    elif st == "Rectangle":
+        d.update(val=float(sp.val), wl0=float(sp.wl0), wl1=float(sp.wl1))
+    elif st == "Gaussian":
+        d.update(val=float(sp.val), mu=float(sp.mu), sig=float(sp.sig))
+    elif st == "Data":
+        d.update(wls=np.asarray(sp._wls), vals=np.asarray(sp._vals))
+    else:
+        raise ValueError(f"a '{st}' spectrum has no plain description")
+    return d
+
+
 def spec_from_jax_steps(steps):
     """The JAX package's TraceStep list as a plain numpy description."""
     spec, descs = [], {}
@@ -68,7 +85,8 @@ def spec_from_jax_steps(steps):
     for st in steps:
         spec.append(dict(kind=st.sfns.kind, action=st.action, pos_host=st.pos_host,
                          params={k: np.asarray(v) for k, v in st.sfns.params.items()},
-                         n1=med(st.n1_fn), n2=med(st.n2_fn)))
+                         n1=med(st.n1_fn), n2=med(st.n2_fn), D=float(st.D),
+                         spectrum=spectrum_desc(st.spectrum_fn) if st.spectrum_fn is not None else None))
     return spec
 
 

@@ -3,6 +3,7 @@
 
     python3 tools/profile_port.py [--batches 4] [--rays 1000000] [--fuse-planar] [--out profile.json]
     python3 tools/profile_port.py --kernel-times [--root DIR] [--rays 1000000]
+    python3 tools/profile_port.py --iterative [--batches 4] [--rays 1000000]
 
 Renders the double Gauss (the scene of chip_smoke.py) under torch.profiler
 and prints one JSON object: wall time per batch, the device's busy time and
@@ -23,6 +24,14 @@ spread rays, the render's input and ``detector_image``'s hits, beside
 directory, such as an unpacked earlier commit: to compare two trees on one
 card, run this mode for each in turn (earlier, this, this, earlier), one
 after the other on the same machine.
+
+``--iterative`` profiles ``Raytracer.iterative_render`` of the double Gauss
+with two detector positions over ``--batches`` batches of ``--rays`` rays:
+wall ms of the whole call and a batch, the device's busy ms and idle share,
+device launches and kernel 1 and 2 launches a batch, and the parts of the
+first (stored) batch timed on their own: ``trace`` with its copy to the
+host, ``detector_image`` from the sections kept on the card, and one fused
+batch with two sinks.
 
 ``--sass`` builds the kernels and counts, for every kernel in the libraries,
 the instructions of its disassembly (``cuobjdump -sass``) by opcode: loads
@@ -167,6 +176,71 @@ def kernel_times(args, smi):
     return 0
 
 
+def iterative_profile(args, smi):
+    """``iterative_render`` under the profiler, and its parts by the host's clock."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    from torch.autograd import DeviceType
+    import optrace_tpu_torch as ot
+    from chip_smoke import double_gauss_scene
+    from optrace_tpu_torch.ops import cuda_run, cuda_binning
+
+    def scene():
+        RT = double_gauss_scene(ot, no_pol=True)
+        RT.ITER_RAYS_STEP = args.rays
+        z = float(RT.detectors[0].pos[2])
+        return RT, [[0.0, 0.0, z], [0.0, 0.0, z - 2.0]]
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    N = args.batches * args.rays
+    RT, pos = scene()
+    RT.iterative_render(2 * args.rays, pos=pos)     # builds the kernels, warms up
+    cuda_run.reset_launch_counts()
+    cuda_binning.reset_launch_counts()
+    wall_ms, _ = clock(lambda: RT.iterative_render(N, pos=pos))
+    launches_1, launches_2 = cuda_run.conic_run.launches, cuda_binning.bin_xyzw_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        RT.iterative_render(N, pos=pos)
+        torch.cuda.synchronize()
+    busy_us = count = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            busy_us += ev.self_device_time_total
+            count += ev.count
+    if not count:
+        print("profile_port: the profiler recorded no device time", file=sys.stderr)
+        return 1
+    # the parts, each on its own
+    RT2, pos2 = scene()
+    RT2.trace(20000)
+    trace_ms, _ = clock(lambda: RT2.trace(args.rays))
+    image_ms, img = clock(lambda: RT2.detector_image(_dont_filter=True))
+    cfgs = [dict(detector_index=0, pos=q, extent=tuple(img.extent), filter_extent=tuple(img._extent0),
+                 Ny=img.shape[0], Nx=img.shape[1]) for q in pos2]
+    render, _ = ot.make_fused_render_multi(RT2, args.rays, cfgs)
+    with torch.no_grad():
+        render(ot.make_generator(1))
+        fused_ms = [clock(lambda: render(ot.make_generator(b)))[0] for b in range(4)]
+    res = dict(gpu=smi, scene="double_gauss", entry="Raytracer.iterative_render", positions=2,
+               rays=args.rays, batches=args.batches, wall_ms=wall_ms,
+               wall_ms_per_batch=wall_ms / args.batches, rays_per_s=N / wall_ms * 1e3,
+               device_busy_ms=busy_us / 1e3, device_busy_ms_per_batch=busy_us / 1e3 / args.batches,
+               device_idle_share=max(0.0, 1.0 - busy_us / 1e3 / wall_ms),
+               device_launches_per_batch=count / args.batches,
+               conic_run_launches_per_batch=launches_1 / args.batches,
+               bin_xyzw_launches_per_batch=launches_2 / args.batches,
+               parts_ms=dict(trace_with_host_copy=trace_ms, detector_image_from_kept_sections=image_ms,
+                             fused_batch_two_sinks=fused_ms))
+    print(json.dumps(res))
+    return 0
+
+
 def sass_counts(smi):
     """Instructions by opcode in every kernel of the built libraries."""
     import collections
@@ -210,6 +284,8 @@ def main():
                     help="trace with global_options.cuda_fuse_planar set")
     ap.add_argument("--kernel-times", action="store_true",
                     help="time the run kernel alone, 20 launches between one pair of events")
+    ap.add_argument("--iterative", action="store_true",
+                    help="profile Raytracer.iterative_render over --batches batches of --rays rays")
     ap.add_argument("--sass", action="store_true",
                     help="count the instructions of every kernel's disassembly by opcode")
     ap.add_argument("--root", default=str(REPO),
@@ -235,6 +311,8 @@ def main():
         return sass_counts(smi)
     if args.kernel_times:
         return kernel_times(args, smi)
+    if args.iterative:
+        return iterative_profile(args, smi)
     RT = double_gauss_scene(ot, no_pol=True)
     render, _ = ot.make_fused_render(RT, args.rays, Nx=args.pixels, Ny=args.pixels)
     with torch.no_grad():
