@@ -15,8 +15,12 @@ plate, ring, rectangle, slit) in one run, measures the render with
 stored trace's detector and source images and spectra from the sections kept
 on the card, traces a scene with an image source, a filter, HURB bending and
 an ideal lens, drives ``iterative_render`` and ``render_huge`` (interrupted,
-resumed, spherical detector), and checks that every path went through its
-kernels (launch counters). Every phase prints one JSON line; the last line is
+resumed, spherical detector), differentiates a spot loss of the double Gauss
+with respect to its 14 curvatures (autograd against finite differences,
+kernel route against plain route, five design steps), searches its focus
+with all four methods, convolves images with a PSF preset and with its
+detector image, traces the Arizona eye, and checks that every path went
+through its kernels (launch counters). Every phase prints one JSON line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure exits with a non-zero code. Without a CUDA device the script
 fails at once: nothing here runs on the CPU.
@@ -65,6 +69,26 @@ FILTER_MAX_T = 0.9              # largest transmission of the steps scene's filt
 # an image binned in f32 on the card against an f64 histogram of the same hits
 # on the host: a hit within f32 rounding of a pixel edge may change its pixel
 TOL_EDGE_SHARE = 1e-3           # summed absolute difference over the image's power
+
+
+# design phase: the double Gauss's spot on its detector lies within 0.17 mm of
+# the axis (2 × 10⁴ rays on the CPU); a soft-binned 189² image over ±0.3 mm
+# holds every ray, so no ray crosses the extent's edge between the probes of a
+# finite difference
+DESIGN_EXT = (-0.3, 0.3, -0.3, 0.3)
+DESIGN_PIXELS = 189
+DESIGN_SEED = 7
+FD_RTOL = 3e-2                  # autograd against central differences (the JAX tests' rtol)
+FD_EPS_REL = 1e-4               # the step of a central difference, relative to the curvature
+FD_GRAD_FLOOR = 10.0            # |d spot / d rho| (mm per mm⁻¹) above which a difference is held
+DESIGN_LR = 2e-7                # normalised-gradient step on the curvatures (mm⁻¹): on 2 × 10⁴
+#                                 rays the loss falls along the gradient up to about 1e-6
+CEMENT_GAP = 1e-3               # mm: two vertices this close are a cemented interface
+DESIGN_STEPS = 5
+TOL_LOSS_REL = 1e-6             # the loss by the plain run against the kernel run
+FOCUS_SUBSET, FOCUS_PLANES = 10 ** 5, 16    # card against CPU cost sweep
+TOL_FOCUS_COST = 1e-4           # relative: the same f32 operations, sums in another order
+TOL_CONVOLVE = 1e-6             # card against CPU, both f64, on the [0, 1] sRGB range
 
 
 def emit(obj):
@@ -246,6 +270,46 @@ def capture_run_calls(RT, N, store, seed):
         trace_core.trace_bundle(steps, RT.n0, tuple(float(v) for v in RT.outline),
                                 p, s, pols, w, wl, RT.no_pol, store_sections=store)
     return rec.calls
+
+
+def sections_agree(RT_a, RT_b, label):
+    """Stored sections of two traces of the same rays: flipped rays within
+    the budget, the others within TOL_P. Returns (flips, max abs)."""
+    import numpy as np
+    pa, pb, wa, wb = RT_a.rays.p_list, RT_b.rays.p_list, RT_a.rays.w_list, RT_b.rays.w_list
+    assert pa.shape == pb.shape, label
+    flipped = np.any((wa > 0) != (wb > 0), axis=1)
+    n_flip = int(flipped.sum())
+    assert n_flip <= FLIPS_PER_MRAY * pa.shape[0] / 1e6, f"{label}: {n_flip} flipped rays"
+    d = float(np.abs(pa[~flipped] - pb[~flipped]).max())
+    assert d <= TOL_P, f"{label}: sections differ by {d}"
+    return n_flip, d
+
+
+def reset_launch_counts():
+    from optrace_tpu_torch.ops import cuda_run, cuda_binning, cuda_trace
+    cuda_run.reset_launch_counts()
+    cuda_binning.reset_launch_counts()
+    cuda_trace.reset_launch_counts()
+
+
+class PlainRunCounter:
+    """Counts the runs that the trace sends to the plain loop
+    (``trace_core.conic_run_reference``) while the ``with`` block runs."""
+
+    def __enter__(self):
+        from optrace_tpu_torch.tracer import trace_core
+        self.module, self.calls = trace_core, 0
+        self.real = trace_core.conic_run_reference
+
+        def counter(*args, **kw):
+            self.calls += 1
+            return self.real(*args, **kw)
+        trace_core.conic_run_reference = counter
+        return self
+
+    def __exit__(self, *exc):
+        self.module.conic_run_reference = self.real
 
 
 class RunRecorder:
@@ -591,6 +655,372 @@ def run_partition(ot, RT, sink_masks=()):
 
 # ----------------------------------------------------------------------
 
+# ----------------------------------------------------------------------
+# the design and analysis layer: each phase drives its path with the
+# counters set to 0 just before and returns its launches and its rows
+
+def arizona_eye_scene(ot, no_pol=True):
+    """The Arizona eye (``presets/geometry.py:arizona_eye``, relaxed, 5.7 mm
+    pupil) looking at a point at infinity: a parallel bundle at 555 nm
+    filling the pupil, the spherical retina as its detector."""
+    from optrace_tpu_torch.presets.geometry import arizona_eye
+    RT = ot.Raytracer(outline=[-15, 15, -15, 15, -12, 30], no_pol=no_pol)
+    RT.add(ot.RaySource(ot.CircularSurface(r=3.0), divergence="None", pos=[0, 0, -10],
+                        spectrum=ot.LightSpectrum("Monochromatic", wl=555.0)))
+    RT.add(arizona_eye())
+    return RT
+
+
+def design_phase(ot, smi, n=N_RAYS):
+    """make_parameterized_render of the double Gauss, spot_loss and its
+    gradient with respect to all 14 curvatures: autograd (plain loop) against
+    central differences (kernel route), the plain route's loss against the
+    kernel's, the repair (a render at a changed curvature without a gradient
+    traces the changed surface on both routes), five normalised-gradient
+    steps. Returns the kernel 1 launches of the evaluations without a
+    gradient."""
+    import numpy as np
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.tracer.diff import make_parameterized_render, spot_loss, steps_with_params
+    from optrace_tpu_torch.tracer.trace_core import trace_bundle
+    go = ot.global_options
+
+    RT = double_gauss_scene(ot, no_pol=True)
+    render, params0 = make_parameterized_render(RT, n, extent=list(DESIGN_EXT), Nx=DESIGN_PIXELS,
+                                                Ny=DESIGN_PIXELS, soft_bin=True)
+    loss_fn = spot_loss(render)
+    idx = [i for i, p in enumerate(params0) if "rho" in p]
+    assert len(idx) == 14, idx
+    rhos0 = torch.stack([params0[i]["rho"] for i in idx])
+    # a cemented interface (L_3 back, L_4 front: 1e-6 mm apart) is one
+    # design parameter: moved alone, one of its two surfaces crosses the
+    # other within a change of 1e-8 in curvature and the rays between
+    # them are lost. Its two gradients are summed for a design step, and
+    # the finite differences are taken on the other curvatures.
+    zs = [float(params0[i]["pos"][2]) for i in idx]
+    cemented = [(k, k + 1) for k in range(len(idx) - 1) if abs(zs[k + 1] - zs[k]) < CEMENT_GAP]
+    assert cemented == [(7, 8)], cemented
+    free = [k for k in range(len(idx)) if not any(k in pair for pair in cemented)]
+
+    def tied(g):
+        g = g.clone()
+        for a, b in cemented:
+            g[a] = g[b] = g[a] + g[b]
+        return g
+
+    def params_at(rhos):
+        params = [dict(p) for p in params0]
+        for k, i in enumerate(idx):
+            params[i]["rho"] = rhos[k]
+        return params
+
+    def value_and_grad(rhos):
+        r = rhos.detach().clone().requires_grad_()
+        val = loss_fn(params_at(r), DESIGN_SEED, DESIGN_EXT)
+        val.backward()
+        return float(val.detach()), r.grad
+
+    def loss_only(rhos):
+        with torch.no_grad():
+            return float(loss_fn(params_at(rhos), DESIGN_SEED, DESIGN_EXT))
+
+    value_and_grad(rhos0)                   # warm-up of both routes
+    loss_only(rhos0)
+    torch.cuda.synchronize()
+    evals = dict(kernel=0, plain=0)         # evaluations by route, for the launch counts
+    reset_launch_counts()
+    with PlainRunCounter() as plain:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        L_grad, g0 = value_and_grad(rhos0)
+        torch.cuda.synchronize()
+        t_vg = time.perf_counter() - t0
+        evals["plain"] += 1
+        mem_vg = torch.cuda.max_memory_allocated()
+        assert conic_run.launches == 0 and plain.calls == 2, (conic_run.launches, plain.calls)
+        t0 = time.perf_counter()
+        L_kernel = loss_only(rhos0)
+        torch.cuda.synchronize()
+        t_loss = time.perf_counter() - t0
+        evals["kernel"] += 1
+        assert conic_run.launches == 2 and plain.calls == 2, (conic_run.launches, plain.calls)
+        go.cuda_trace = False
+        try:
+            L_plain = loss_only(rhos0)
+        finally:
+            go.cuda_trace = True
+        evals["plain"] += 1
+        assert conic_run.launches == 2 and plain.calls == 4, (conic_run.launches, plain.calls)
+        assert np.isfinite(g0.cpu().numpy()).all() and 0 < L_kernel < DESIGN_EXT[1]
+        d_plain = abs(L_plain - L_kernel) / L_kernel
+        d_grad_route = abs(L_grad - L_kernel) / L_kernel
+        assert d_plain <= TOL_LOSS_REL and d_grad_route <= TOL_LOSS_REL, (d_plain, d_grad_route)
+
+        # central differences through the kernel route, on the curvatures
+        # with the largest gradients
+        fd = []
+        order = [k for k in torch.argsort(g0.abs(), descending=True).tolist() if k in free]
+        for k in order[:4]:
+            g_auto = float(g0[k])
+            if abs(g_auto) <= FD_GRAD_FLOOR:
+                continue
+            eps = FD_EPS_REL * abs(float(rhos0[k]))
+            up, dn = rhos0.clone(), rhos0.clone()
+            up[k] += eps
+            dn[k] -= eps
+            eps_true = (float(up[k]) - float(dn[k])) / 2        # the steps as f32 rounded them
+            g_fd = (loss_only(up) - loss_only(dn)) / (2 * eps_true)
+            evals["kernel"] += 2
+            fd.append(dict(surface=idx[k], rho=float(rhos0[k]), eps=eps_true, autograd=g_auto,
+                           central_difference=g_fd, rel_diff=abs(g_auto - g_fd) / abs(g_fd)))
+            assert abs(g_auto - g_fd) <= FD_RTOL * abs(g_fd), fd[-1]
+        assert len(fd) >= 3, fd
+
+        # the repair: a changed curvature without a gradient traces the
+        # changed surface, bit for bit the same on the kernel and plain routes
+        k3 = idx.index(3)
+        rhos_e = rhos0.clone()
+        rhos_e[k3] += 1e-4
+        steps_e = steps_with_params(RT._build_steps(), params_at(rhos_e))
+        rays = RT._make_source_fn(n)(ot.make_generator(DESIGN_SEED))
+        outline = tuple(float(v) for v in RT.outline)
+        with torch.no_grad():
+            sec_k = trace_bundle(steps_e, RT.n0, outline, *rays, True)["p"]
+            go.cuda_trace = False
+            try:
+                sec_p = trace_bundle(steps_e, RT.n0, outline, *rays, True)["p"]
+            finally:
+                go.cuda_trace = True
+            sec_0 = trace_bundle(RT._build_steps(), RT.n0, outline, *rays, True)["p"]
+        evals["kernel"] += 2
+        evals["plain"] += 1
+        bit_equal = bool(torch.equal(sec_k, sec_p))
+        moved = float((sec_k - sec_0).abs().max())
+        assert bit_equal and moved > 1e-4, (bit_equal, moved)
+        L_e_kernel = loss_only(rhos_e)
+        L_e_grad, _ = value_and_grad(rhos_e)
+        evals["kernel"] += 1
+        evals["plain"] += 1
+        d_changed = abs(L_e_kernel - L_e_grad) / L_e_grad
+        assert d_changed <= TOL_LOSS_REL and abs(L_e_kernel - L_kernel) > 1e-6 * L_kernel, \
+            (d_changed, L_e_kernel, L_kernel)
+        del sec_k, sec_p, sec_0, rays
+
+        # five normalised-gradient steps; the last image without a gradient
+        rhos, history, t_steps = rhos0.clone(), [], []
+        for _ in range(DESIGN_STEPS):
+            t0 = time.perf_counter()
+            val, g = value_and_grad(rhos)
+            torch.cuda.synchronize()
+            t_steps.append(time.perf_counter() - t0)
+            evals["plain"] += 1
+            history.append(val)
+            g = tied(g)
+            rhos = rhos - DESIGN_LR * g / torch.clamp(torch.linalg.vector_norm(g), min=1e-12)
+        final = loss_only(rhos)
+        evals["kernel"] += 1
+        history.append(final)
+        assert final < history[0], history
+        n_kernel, n_plain = conic_run.launches, plain.calls
+    assert n_kernel == 2 * evals["kernel"] and n_plain == 2 * evals["plain"], (n_kernel, n_plain, evals)
+    assert conic_run.variant_launches == {(False, True): n_kernel}, conic_run.variant_launches
+    emit(dict(phase="design", gpu=smi, scene="double_gauss", N=n, image=[DESIGN_PIXELS] * 2,
+              extent=list(DESIGN_EXT), soft_bin=True, curvatures=len(idx),
+              seconds_value_and_grad=t_vg, seconds_loss_only=t_loss,
+              seconds_value_and_grad_steps=t_steps,
+              max_memory_allocated_GB_value_and_grad=mem_vg / 1e9,
+              loss=L_kernel, loss_plain_route=L_plain, loss_grad_route=L_grad,
+              loss_rel_diff_plain_vs_kernel=d_plain, loss_rel_diff_grad_vs_kernel=d_grad_route,
+              tolerance_loss_rel=TOL_LOSS_REL, gradient=g0.tolist(),
+              finite_differences=fd, fd_rtol=FD_RTOL, fd_gradient_floor=FD_GRAD_FLOOR,
+              changed_rho=dict(surface=3, drho=1e-4, kernel_vs_plain_sections_bit_equal=bit_equal,
+                               sections_moved_max_mm=moved,
+                               loss_rel_diff_kernel_vs_grad_route=d_changed),
+              steps=dict(lr=DESIGN_LR, losses=history, cemented_pairs=[[idx[a], idx[b]] for a, b in cemented]),
+              evaluations=evals,
+              launches=dict(conic_run=n_kernel, plain_run=n_plain,
+                            per_evaluation_without_gradient=2, per_evaluation_with_gradient=0)))
+    return {"conic_run[nopol,store]@design": n_kernel}
+
+
+def focus_phase(ot, smi, n=N_RAYS, subset=FOCUS_SUBSET):
+    """A stored 10⁶-ray trace of the double Gauss, focus_search with all four
+    methods from the sections kept on the card, the TMA's paraxial image
+    beside the RMS focus, the card's cost sweep against the CPU's; then the
+    trace's detector_image as the PSF of the convolve phase."""
+    import numpy as np
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
+    from optrace_tpu_torch.analysis import focus
+    from optrace_tpu_torch.image import render_image as render_image_mod
+
+    RT = double_gauss_scene(ot, no_pol=True)
+    RT.trace(20000)
+    RT.focus_search("Irradiance Variance", z_start=float(RT.detectors[0].pos[2]))     # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    RT.trace(n)
+    t_trace = time.perf_counter() - t0
+    assert conic_run.launches == 2 and conic_run.variant_launches == {(False, True): 2}
+    n_trace = conic_run.launches
+    z_det = float(RT.detectors[0].pos[2])
+    results = {}
+    for method in RT.focus_search_methods:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, fd = RT.focus_search(method, z_start=z_det)
+        torch.cuda.synchronize()
+        results[method] = dict(z=res.x, cost=res.fun, seconds=time.perf_counter() - t0,
+                               rays=fd["N"], bounds=fd["bounds"])
+    assert conic_run.launches == n_trace and bin_xyzw_cuda.launches == 0
+    bounds = results["RMS Spot Size"]["bounds"]
+    z_rms = results["RMS Spot Size"]["z"]
+    z_tma = RT.tma().image_position(float(RT.ray_sources[0].pos[2]))
+    for method, r in results.items():
+        assert bounds[0] < r["z"] < bounds[1] and np.isfinite(r["cost"]), (method, r)
+        assert abs(r["z"] - z_rms) < 0.5, (method, r["z"], z_rms)
+    assert abs(z_rms - z_tma) < 1.0, (z_rms, z_tma)
+
+    # the card's sweep against the CPU's on a subset of the ray lines
+    q0, m, w = RT._focus_ray_lines(bounds, None)
+    q0, m, w = q0[:subset].float(), m[:subset].float(), w[:subset].float()
+    z = torch.linspace(z_rms - 1.0, z_rms + 1.0, FOCUS_PLANES, dtype=torch.float32)
+    sweep = {}
+    for method in RT.focus_search_methods:
+        n_px = focus.histogram_side(q0.shape[0])
+        card = focus.cost_sweep(z.to(q0.device), q0, m, w, method, n_px).cpu().numpy()
+        cpu = focus.cost_sweep(z, q0.cpu(), m.cpu(), w.cpu(), method, n_px).numpy()
+        d = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        assert d <= TOL_FOCUS_COST, (method, d)
+        sweep[method] = d
+
+    # the PSF that the convolve phase takes: detector_image of this trace
+    reset_launch_counts()
+    with BinRecorder(render_image_mod) as rec:
+        t0 = time.perf_counter()
+        psf = RT.detector_image()
+        t_image = time.perf_counter() - t0
+    assert bin_xyzw_cuda.launches == 1 and len(rec.calls) == 1
+    px, py, w_b, wl_b, Nx_p, Ny_p, ext_p = rec.calls[0]
+    bin_psf = check_binning(px, py, w_b, wl_b, ext_p, "bin_xyzw@convolve_psf", Nx=Nx_p, Ny=Ny_p)
+    emit(dict(phase="focus", gpu=smi, scene="double_gauss", N=n, trace_seconds_with_host_copy=t_trace,
+              methods=results, tma_image_position=z_tma, rms_focus_minus_tma=z_rms - z_tma,
+              detector_z=z_det, cost_sweep_card_vs_cpu_max_rel=sweep,
+              cost_sweep_subset=dict(rays=int(q0.shape[0]), planes=FOCUS_PLANES),
+              tolerance_rel=TOL_FOCUS_COST, chunk_planes_at_N=focus.plane_chunk(fd["N"]),
+              psf_detector_image_seconds=t_image, psf_shape=list(psf.shape), psf_extent=list(psf.extent),
+              launches=dict(conic_run=n_trace, bin_xyzw_focus_search=0, bin_xyzw_psf=1)))
+    return ({"conic_run[nopol,store]@focus": n_trace, "bin_xyzw@convolve_psf": 1},
+            {"bin_xyzw@convolve_psf": bin_psf}, psf)
+
+
+def convolve_phase(ot, smi, psf_render):
+    """convolve on the card against the CPU: a colour chart with the halo
+    PSF and m = -1 (examples/psf_imaging.py), and a gray chart with the
+    double Gauss's detector image as a colour PSF."""
+    import numpy as np
+    import torch
+    cases = {"color_checker*halo,m=-1": (ot.presets.image.color_checker([1.5, 1.0]),
+                                         ot.presets.psf.halo(sig1=1.0, sig2=0.5, r=8.0, a=0.2),
+                                         dict(m=-1)),
+             "siemens_star*double_gauss_psf": (ot.presets.image.siemens_star([2.0, 2.0]), psf_render, {})}
+    out = {}
+    for label, (img, psf, kw) in cases.items():
+        with ot.global_options.no_warnings():
+            ot.convolve(img, psf, **kw)     # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = ot.convolve(img, psf, **kw)
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = ot.convolve(img, psf, device="cpu", **kw)
+            t_cpu = time.perf_counter() - t0
+        d = float(np.abs(card.data - cpu.data).max())
+        assert type(card) is type(cpu) and card.shape == cpu.shape and d <= TOL_CONVOLVE, (label, d)
+        assert np.array_equal(card.extent, cpu.extent) and np.isfinite(card.data).all()
+        assert card.data.max() > 0.1
+        out[label] = dict(result=type(card).__name__, shape=list(card.shape), seconds=t_card,
+                          seconds_cpu=t_cpu, max_abs_card_vs_cpu=d)
+    emit(dict(phase="convolve", gpu=smi, cases=out, tolerance=TOL_CONVOLVE))
+
+
+def eye_phase(ot, smi, n=N_RAYS):
+    """The Arizona eye at 10⁶ rays from a point at infinity: the trace with
+    cuda_fuse_planar off (cornea and lens are runs of 2, under MIN_RUN: no
+    launch of kernel 1) and on (the pupil joins them: one run of 5), the RMS
+    focus near the retina against the TMA, detector_image on the spherical
+    retina."""
+    import numpy as np
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
+    from optrace_tpu_torch.image import render_image as render_image_mod
+    from optrace_tpu_torch.tracer.trace_core import MIN_RUN
+    go = ot.global_options
+    traced, runs = {}, {}
+    for flag in (False, True):
+        go.cuda_fuse_planar = flag
+        try:
+            RT = arizona_eye_scene(ot)
+            runs[flag] = run_partition(ot, RT)
+            RT.trace(20000)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            RT.trace(n)
+            traced[flag] = (RT, time.perf_counter() - t0, conic_run.launches)
+        finally:
+            go.cuda_fuse_planar = False
+    assert runs == {False: [], True: [5]}, runs
+    assert traced[False][2] == 0 and traced[True][2] == 1, (traced[False][2], traced[True][2])
+    flips, d_sec = sections_agree(traced[True][0], traced[False][0], "eye, run of 5 against unrolled steps")
+    RT = traced[False][0]
+    eye_g = ot.presets.geometry.arizona_eye()
+    tma = eye_g.tma(wl=555.0)
+    t0 = time.perf_counter()
+    res, fd = RT.focus_search("RMS Spot Size", z_start=20.0)
+    t_focus = time.perf_counter() - t0
+    z_f = tma.focal_points[1]
+    assert abs(res.x - z_f) < 0.5, (res.x, z_f)
+    reset_launch_counts()
+    with BinRecorder(render_image_mod) as rec:
+        t0 = time.perf_counter()
+        img = RT.detector_image(projection_method="Equidistant")
+        t_image = time.perf_counter() - t0
+    assert bin_xyzw_cuda.launches == 1 and len(rec.calls) == 1
+    assert img.projection == "Equidistant" and np.isfinite(img.data).all() and img.power() > 0
+    px, py, w_b, wl_b, Nx_e, Ny_e, ext_e = rec.calls[0]
+    bin_eye = check_binning(px, py, w_b, wl_b, ext_e, "bin_xyzw@eye", Nx=Nx_e, Ny=Ny_e)
+    del px, py, w_b, wl_b, rec
+    # kernel 1 on the eye's run of 5 (flag on) against its plain version
+    go.cuda_fuse_planar = True
+    try:
+        calls = capture_run_calls(arizona_eye_scene(ot), n, True, seed=21)
+    finally:
+        go.cuda_fuse_planar = False
+    assert [len(c["steps"]) for c in calls] == [5]
+    row = check_run_calls(calls, "conic_run[nopol,store]@eye5")
+    del calls
+    emit(dict(phase="eye", gpu=smi, scene="arizona_eye, point at infinity, 555 nm", N=n,
+              runs_flag_off=runs[False], runs_flag_on=runs[True], min_run=MIN_RUN,
+              note="with cuda_fuse_planar off the eye's runs hold 2 refractions (cornea, lens), "
+                   "under MIN_RUN = 4: kernel 1 is not launched; with it on the pupil joins "
+                   "them into one run of 5",
+              trace_seconds_flag_off=traced[False][1], trace_seconds_flag_on=traced[True][1],
+              launches=dict(conic_run_flag_off=traced[False][2], conic_run_flag_on=traced[True][2],
+                            bin_xyzw_retina=1),
+              sections_flag_on_vs_off=dict(flips=flips, max_abs=d_sec),
+              rms_focus=res.x, tma_rear_focal_point=z_f, focus_minus_tma=res.x - z_f,
+              focus_seconds=t_focus, focus_rays=fd["N"], retina_image=list(img.shape),
+              retina_extent_rad=list(img.extent), retina_power=img.power(),
+              detector_image_seconds=t_image, kernel_eye5=row))
+    return ({"conic_run[nopol,store]@eye5": traced[True][2], "bin_xyzw@eye": 1},
+            {"conic_run[nopol,store]@eye5": row, "bin_xyzw@eye": bin_eye})
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -603,7 +1033,7 @@ def main():
 
     import numpy as np
     import optrace_tpu_torch as ot
-    from optrace_tpu_torch.ops import _build, cuda_run, cuda_binning, cuda_trace
+    from optrace_tpu_torch.ops import _build
     from optrace_tpu_torch.ops.cuda_run import conic_run
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
     from optrace_tpu_torch.ops.cuda_trace import conic_step
@@ -616,17 +1046,12 @@ def main():
     dev = ot.resolve_device()
     fuse_default = go.cuda_fuse_planar      # the default that this script measures below
 
-    def reset_counts():
-        cuda_run.reset_launch_counts()
-        cuda_binning.reset_launch_counts()
-        cuda_trace.reset_launch_counts()
-
     def drive_trace(scene, no_pol, n=N_RAYS):
         """``Raytracer.trace`` of a fresh scene, counters set to 0 just before."""
         RTd = scene(ot, no_pol)
         RTd.trace(20000)                        # warm-up at a small size
         torch.cuda.synchronize()
-        reset_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         RTd.trace(n)
         return RTd, time.perf_counter() - t0
@@ -638,23 +1063,11 @@ def main():
         with torch.no_grad():
             render_d(ot.make_generator(100))
             torch.cuda.synchronize()
-            reset_counts()
+            reset_launch_counts()
             img_d = render_d(ot.make_generator(0))
             torch.cuda.synchronize()
         assert bool(torch.isfinite(img_d).all())
         return RTd, float(img_d[..., 3].sum())
-
-    def sections_agree(RT_a, RT_b, label):
-        """Stored sections of two traces of the same rays: flipped rays
-        within the budget, the others within TOL_P. Returns (flips, max abs)."""
-        pa, pb, wa, wb = RT_a.rays.p_list, RT_b.rays.p_list, RT_a.rays.w_list, RT_b.rays.w_list
-        assert pa.shape == pb.shape, label
-        flipped = np.any((wa > 0) != (wb > 0), axis=1)
-        n_flip = int(flipped.sum())
-        assert n_flip <= FLIPS_PER_MRAY * pa.shape[0] / 1e6, f"{label}: {n_flip} flipped rays"
-        d = float(np.abs(pa[~flipped] - pb[~flipped]).max())
-        assert d <= TOL_P, f"{label}: sections differ by {d}"
-        return n_flip, d
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -747,7 +1160,7 @@ def main():
     for label, sl in (("bin_xyzw@two_hot", slice(0, N_RAYS)), ("bin_xyzw@tail", slice(1, 1 + n_tail))):
         hits = torch.stack([xs[sl], ys[sl], torch.zeros_like(xs[sl])], dim=-1)
         rimg_b = ot.RenderImage(extent=ext_b)
-        reset_counts()
+        reset_launch_counts()
         with BinRecorder(render_image_mod) as rec:
             rimg_b.render(hits, ws[sl], wls[sl])
         assert bin_xyzw_cuda.launches == 1 and len(rec.calls) == 1
@@ -776,7 +1189,7 @@ def main():
     with torch.no_grad():
         render(ot.make_generator(100))        # warm-up batch, not accumulated
         torch.cuda.synchronize()
-        reset_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         for b in range(N_BATCHES):
             batch = render(ot.make_generator(b))
@@ -830,7 +1243,7 @@ def main():
         n_surf = len(RTt.tracing_surfaces)
         RTt.trace(20000)                        # warm-up at a small size
         torch.cuda.synchronize()
-        reset_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         RTt.trace(N_RAYS)
         t_total = time.perf_counter() - t0
@@ -888,7 +1301,7 @@ def main():
     RTa.trace(20000)                            # warm-up at a small size
     RTa.detector_image()
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     RTa.trace(N_RAYS)
     t_trace = time.perf_counter() - t0
@@ -965,7 +1378,7 @@ def main():
     # ---- 5b. the sections kept on the card: images and spectra of that trace --
     from optrace_tpu_torch import color as color_mod
     assert RTa._dev_sections is not None and RTa._dev_sections[1].is_cuda
-    reset_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     RTa._dev_sections = None                    # drop the tensors: the host storage is uploaded
     rimg_h = RTa.detector_image()
@@ -976,7 +1389,7 @@ def main():
     d_host = float(np.abs(rimg_h.data - data).max())
     assert d_host <= TOL_BIN * data.max(), (d_host, data.max())
     RTa.trace(N_RAYS)                           # a trace of its own: the tensors are back
-    reset_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     rimg2 = RTa.detector_image()
     t_image2 = time.perf_counter() - t0
@@ -1014,7 +1427,7 @@ def main():
 
     sections_out = dict(detector_image=image_against_f64(rimg2, ph_h[:, 0], ph_h[:, 1], w_h, wl_h,
                                                           "detector_image"))
-    reset_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     dspec = RTa.detector_spectrum()
     t_dspec = time.perf_counter() - t0
@@ -1095,7 +1508,7 @@ def main():
                               "conic", "conic", "conic", "conic"], kinds
         assert run_partition(ot, RTat) == [4, 4]
         RTat.trace(20000)
-        reset_counts()
+        reset_launch_counts()
         RTat.trace(N_RAYS // 4)
         assert conic_run.launches == 2 and conic_run.kind_launches.get("asphere") == 1 \
             and "tilted" not in conic_run.kind_launches, conic_run.kind_launches
@@ -1150,7 +1563,7 @@ def main():
             with torch.no_grad():
                 render(ot.make_generator(100))
                 torch.cuda.synchronize()
-                reset_counts()
+                reset_launch_counts()
                 acc = torch.zeros((NY, NX, 4), dtype=torch.float32, device=dev)
                 batch_ms = []
                 for b in range(N_BATCHES_FLAG):
@@ -1201,7 +1614,7 @@ def main():
     del images, RT, RTt
 
     # ---- 8. the single-step kernel's probe --------------------------------
-    reset_counts()
+    reset_launch_counts()
     step_res = check_conic_step()
     launches["conic_step"] = step_res["launches"]
     emit(dict(phase="conic_step_probe", gpu=smi, **step_res))
@@ -1215,7 +1628,7 @@ def main():
         ["filter"] + ["refract"] * 6 + ["absorb"] + ["refract"] * 8 + ["ideal", "absorb"]
     RTs.trace(20000)                            # warm-up at a small size
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launch_counts()
     with RunRecorder() as rec_s:
         t0 = time.perf_counter()
         RTs.trace(N_RAYS)
@@ -1284,7 +1697,7 @@ def main():
     assert RTi.ITER_RAYS_STEP == N_RAYS
     RTi.trace(20000)                            # warm-up; the render's first batch draws seed 2
     torch.cuda.synchronize()
-    reset_counts()
+    reset_launch_counts()
     with BinRecorder(render_mod) as rec_i:
         t0 = time.perf_counter()
         imgs_i = RTi.iterative_render(N_ITERATIVE, pos=positions)
@@ -1353,7 +1766,7 @@ def main():
     ck_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     ck_path = os.path.join(ck_dir, "huge.ckpt.npz")
     kw_h = dict(batch_size=N_RAYS, checkpoint_every=1)
-    reset_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     full = double_gauss_scene(ot, True).render_huge(N_ITERATIVE, **kw_h)
     torch.cuda.synchronize()
@@ -1383,7 +1796,7 @@ def main():
         RenderCheckpoint.save = real_save
     on_disk = RenderCheckpoint(ck_path, n_b)
     assert on_disk.done == 2 and list(on_disk.remaining()) == [2, 3]
-    reset_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     resumed = double_gauss_scene(ot, True).render_huge(N_ITERATIVE, checkpoint_path=ck_path, **kw_h)
     t_resume = time.perf_counter() - t0
@@ -1398,7 +1811,7 @@ def main():
     # spherical detector: one fused batch against detector_image of a stored
     # trace of the same rays (the generator of batch 0 seeds the trace)
     ext_sph = [-0.05, 0.05, -0.05, 0.05]
-    reset_counts()
+    reset_launch_counts()
     sph = double_gauss_spherical_scene(ot).render_huge(N_RAYS, batch_size=N_RAYS, extent=ext_sph,
                                                       projection_method="Equidistant")
     assert conic_run.launches == 2 and bin_xyzw_cuda.launches == 1
@@ -1423,6 +1836,18 @@ def main():
                              power_stored=p_sph, sum_abs_diff_power=d_sph, lit_pixel_share=lit)))
     del full, resumed, sph, sph_stored, RTsp
 
+    # ---- 12-15. the design and analysis layer ------------------------------
+    launches.update(design_phase(ot, smi))
+    torch.cuda.empty_cache()
+    focus_launches, focus_rows, psf_render = focus_phase(ot, smi)
+    launches.update(focus_launches)
+    torch.cuda.empty_cache()
+    convolve_phase(ot, smi, psf_render)
+    del psf_render
+    eye_launches, eye_rows = eye_phase(ot, smi)
+    launches.update(eye_launches)
+    torch.cuda.empty_cache()
+
     # ---- the kernels of every path --------------------------------------
     rows = dict(main_shapes)
     rows.update({k + "@asphere20": v for k, v in asph.items()})
@@ -1441,6 +1866,10 @@ def main():
     rows["bin_xyzw@iterative"] = bin_iter
     rows["conic_run[nopol,nostore]@huge"] = main_shapes["conic_run[nopol,nostore]"]
     rows["bin_xyzw@huge"] = main_shapes["bin_xyzw"]
+    rows["conic_run[nopol,store]@design"] = main_shapes["conic_run[nopol,store]"]
+    rows["conic_run[nopol,store]@focus"] = main_shapes["conic_run[nopol,store]"]
+    rows.update(focus_rows)
+    rows.update(eye_rows)
     sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
                "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),
                "conic_step": ("conic_step.cu", "optrace_tpu/ops/pallas_trace.py:152")}

@@ -5,8 +5,11 @@ GPU: scene description, source sampling, the surface-by-surface trace
 (Snell, Fresnel, polarization, ideal lenses, filters, HURB edge diffraction,
 INFOS counters), the detector hit search and XYZW binning behind the fused
 streaming render, the stored trace carried through to detector and source
-images and spectra, and the batched renders ``Raytracer.iterative_render``
-and ``render_huge`` with checkpointing. The hot loops are
+images and spectra, the batched renders ``Raytracer.iterative_render``
+and ``render_huge`` with checkpointing, differentiable design
+(``tracer/diff.py``: images as functions of the surface parameters), the
+focus search, paraxial matrix analysis (``TMA``) and PSF convolution
+(``convolve``). The hot loops are
 hand-written CUDA kernels (``ops/cuda_run.py``, ``ops/cuda_binning.py``,
 and the single-step probe ``ops/cuda_trace.py``) with a plain PyTorch
 version beside each.
@@ -25,9 +28,11 @@ from .geometry import (Surface, CircularSurface, RingSurface, ConicSurface,  # n
                        SphericalSurface, RectangularSurface, AsphericSurface,
                        TiltedSurface, SlitSurface,
                        Point, Line, Element, Lens, IdealLens, Filter, Aperture,
-                       Detector, RaySource, Group)
+                       Detector, RaySource, Group, PointMarker, LineMarker,
+                       Volume, BoxVolume, SphereVolume, CylinderVolume)
 from .image import BaseImage, ScalarImage, GrayscaleImage, RGBImage, RenderImage  # noqa: F401
 from .tracer import Raytracer, RayStorage  # noqa: F401
+from .analysis import TMA, convolve  # noqa: F401
 from .parallel import make_fused_render, make_fused_render_multi, RenderCheckpoint  # noqa: F401
 from . import presets  # noqa: F401
 

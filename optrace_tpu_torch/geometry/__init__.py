@@ -14,3 +14,5 @@ from .aperture import Aperture  # noqa: F401
 from .detector import Detector  # noqa: F401
 from .ray_source import RaySource  # noqa: F401
 from .group import Group  # noqa: F401
+from .marker import PointMarker, LineMarker  # noqa: F401
+from .volume import Volume, BoxVolume, SphereVolume, CylinderVolume  # noqa: F401

@@ -1,6 +1,6 @@
 """Scene container (counterpart of ``optrace_tpu/geometry/group.py``): typed
-element lists, z-sorted iteration, flip with media-chain remap, rotation.
-Markers, volumes and the group TMA arrive with their slices."""
+element lists (markers and volumes are drawn, never traced), z-sorted
+iteration, flip with media-chain remap, rotation, group TMA."""
 
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from .filter import Filter
 from .aperture import Aperture
 from .detector import Detector
 from .ray_source import RaySource
+from .marker import PointMarker, LineMarker
+from .volume import Volume
 from .surface import Surface
 from ..spectrum.refraction_index import RefractionIndex
 from ..utils.base_class import BaseClass
@@ -29,6 +31,8 @@ class Group(BaseClass):
         self.filters = []
         self.detectors = []
         self.ray_sources = []
+        self.markers = []
+        self.volumes = []
         self.n0 = n0
         super().__init__(**kwargs)
         if elements is not None:
@@ -50,7 +54,7 @@ class Group(BaseClass):
     @property
     def _elements(self) -> list:
         return [*self.lenses, *self.apertures, *self.filters, *self.ray_sources,
-                *self.detectors]
+                *self.detectors, *self.markers, *self.volumes]
 
     @property
     def pos(self) -> np.ndarray:
@@ -89,10 +93,14 @@ class Group(BaseClass):
         for el in self._elements:
             el.move_to(el.pos - (pos0 - pos))
 
+    def tma(self, wl: float = 555.):
+        """Paraxial analysis of the group's lens setup."""
+        from ..analysis.tma import TMA
+        return TMA(self.lenses, wl=wl, n0=self.n0)
+
     def flip(self, y0: float = 0, z0: float = None) -> None:
         """Flip the whole group around an x-parallel axis through (y0, z0),
-        reversing element order and remapping the media chain n0/n2
-       ."""
+        reversing element order and remapping the media chain n0/n2."""
         if not len(self._elements):
             return
         els = self.elements
@@ -141,6 +149,10 @@ class Group(BaseClass):
             self.ray_sources.append(el)
         elif isinstance(el, Detector):
             self.detectors.append(el)
+        elif isinstance(el, (PointMarker, LineMarker)):
+            self.markers.append(el)
+        elif isinstance(el, Volume):
+            self.volumes.append(el)
         elif isinstance(el, Lens):
             self.lenses.append(el)
         elif isinstance(el, Group):
@@ -165,8 +177,8 @@ class Group(BaseClass):
             for eli in el._elements.copy():
                 success = self.remove(eli) or success
         else:
-            for list_ in [self.lenses, self.apertures, self.detectors,
-                          self.filters, self.ray_sources]:
+            for list_ in [self.lenses, self.apertures, self.detectors, self.volumes,
+                          self.filters, self.ray_sources, self.markers]:
                 for lel in list_.copy():
                     if lel is el:
                         list_.remove(lel)
@@ -178,5 +190,5 @@ class Group(BaseClass):
 
     def clear(self) -> None:
         for list_ in [self.lenses, self.apertures, self.filters, self.detectors,
-                      self.ray_sources]:
+                      self.ray_sources, self.markers, self.volumes]:
             list_[:] = []

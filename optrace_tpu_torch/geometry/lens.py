@@ -1,7 +1,6 @@
 """Lens: two refracting surfaces + media (counterpart of
-``optrace_tpu/geometry/lens.py``; the paraxial ``tma`` arrives with the
-analysis slice). Thickness conventions d / de / (d1, d2)
-with overlap handling."""
+``optrace_tpu/geometry/lens.py``). Thickness conventions d / de / (d1, d2)
+with overlap handling, paraxial analysis of the lens alone (``tma``)."""
 
 from typing import Any
 
@@ -55,6 +54,11 @@ class Lens(Element):
     def de(self) -> float:
         """thickness extension between surface z-extents"""
         return float(self.back.z_min - self.front.z_max)
+
+    def tma(self, wl: float = 555., n0: RefractionIndex = None):
+        """Paraxial transfer-matrix analysis for this lens alone."""
+        from ..analysis.tma import TMA
+        return TMA([self], wl, n0)
 
     def __setattr__(self, key: str, val: Any) -> None:
         if key == "n2" and val is not None:

@@ -3,9 +3,9 @@ image tiles (plain PyTorch).
 
 Counterpart of ``optrace_tpu/ops/binning.py``. :func:`bin_xyzw` is the plain
 version that the CUDA kernel in :mod:`.cuda_binning` is held against;
-:func:`bin_scalar`, :func:`bin_xyzw_sorted` and :func:`histogram_1d` are
-tensor functions on the device of their inputs. The bilinear
-``bin_xyzw_soft`` arrives with the differentiable-design slice.
+:func:`bin_scalar`, :func:`bin_xyzw_sorted`, :func:`bin_xyzw_soft` and
+:func:`histogram_1d` are tensor functions on the device of their inputs;
+:func:`bin_xyzw_soft` is the differentiable one.
 """
 
 import torch
@@ -77,6 +77,42 @@ def bin_xyzw_sorted(px, py, w, wl, Nx: int, Ny: int, extent):
     edges = torch.searchsorted(ks, torch.arange(Ny * Nx + 1, device=ks.device))
     out = csum0[edges[1:]] - csum0[edges[:-1]]
     return out.view(Ny, Nx, 4)
+
+
+def bin_xyzw_soft(px, py, w, wl, Nx: int, Ny: int, extent):
+    """Differentiable XYZW binning by bilinear splatting.
+
+    Each ray deposits into the 4 pixels around its continuous position with
+    bilinear weights, so the image is a smooth function of the ray
+    positions and autograd reaches ``px``, ``py`` and ``w`` (the hard
+    histogram of :func:`bin_xyzw` is piecewise constant in position). Rays
+    outside the extent deposit nothing; neighbours beyond the border are
+    clamped onto it.
+    """
+    x0, x1, y0, y1 = extent[0], extent[1], extent[2], extent[3]
+    gx = (px - x0) / (x1 - x0) * Nx - 0.5
+    gy = (py - y0) / (y1 - y0) * Ny - 0.5
+
+    ix = torch.floor(gx)
+    iy = torch.floor(gy)
+    fx = gx - ix
+    fy = gy - iy
+    # clamp before the integer conversion: a far-off position must not wrap
+    ix = torch.clamp(ix, -1.0, float(Nx)).to(torch.int64)
+    iy = torch.clamp(iy, -1.0, float(Ny)).to(torch.int64)
+
+    inside = (gx >= -0.5) & (gx <= Nx - 0.5) & (gy >= -0.5) & (gy <= Ny - 0.5)
+    wm = torch.where(inside, w, 0.0)
+    xyzw = torch.stack([x_observer(wl) * wm, y_observer(wl) * wm,
+                        z_observer(wl) * wm, wm], dim=-1)
+
+    img = torch.zeros((Ny * Nx, 4), dtype=xyzw.dtype, device=xyzw.device)
+    for dy, wy in ((0, 1.0 - fy), (1, fy)):
+        for dx, wx in ((0, 1.0 - fx), (1, fx)):
+            xi = torch.clamp(ix + dx, 0, Nx - 1)
+            yi = torch.clamp(iy + dy, 0, Ny - 1)
+            img = img.index_add(0, yi * Nx + xi, xyzw * (wx * wy)[:, None])
+    return img.view(Ny, Nx, 4)
 
 
 def histogram_1d(x, w, N: int, x0, x1):

@@ -19,7 +19,9 @@ relative to the applied origin), and where they apply ``action`` ("refract"
 by default, or "absorb"), ``mask`` ("circle", "ring", "rect", "slit") with
 ``ri, hw, hh, hwi, hhi, angle``, ``tn`` (unit normal of a tilted plane) and
 ``coeff`` (polynomial of an even asphere, any length >= 1). On the gradient
-path a value may be a 0-dim tensor. A step of any other kind makes both
+path a value may be a 0-dim tensor, and a moving vertex adds ``dpos`` (the
+(3,) residual shift into the step's frame) and ``rpos`` (the residual of the
+step's vertex, added to its stored section). A step of any other kind makes both
 versions raise.
 """
 
@@ -180,7 +182,7 @@ def _one_step(px, py, pz, sx, sy, sz, w, n1, n2, c, pol=None):
         px = px - c["dx"]
         py = py - c["dy"]
         pz = pz - c["dz"]
-        if "dpos" in c:     # gradient path: residual of the position parameter
+        if "dpos" in c:     # gradient path: residual shift of the position parameters
             px, py, pz = px - c["dpos"][0], py - c["dpos"][1], pz - c["dpos"][2]
     # previous section position: origin of the outline intersection (the
     # pol branch below must not reuse these names)
@@ -454,7 +456,8 @@ def conic_run_reference(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
         st, q, flags = _one_step(*st, n_tab[r1], n_tab[r2], c, pol=q)
         counts.append(torch.stack([torch.count_nonzero(f) for f in flags]))
         if store:
-            ys_p.append(torch.stack([st[0] + c["ox"], st[1] + c["oy"], st[2] + c["oz"]], dim=-1))
+            sec = torch.stack([st[0] + c["ox"], st[1] + c["oy"], st[2] + c["oz"]], dim=-1)
+            ys_p.append(sec + c["rpos"] if "rpos" in c else sec)
             ys_w.append(st[6])
             if q is not None:
                 ys_pol.append(torch.stack(q, dim=-1))

@@ -10,10 +10,12 @@ device: ``detector_image``, ``detector_spectrum``, ``source_image`` and
 ``source_spectrum`` read them there, search the detector hits in f64 and bin
 them on the same device, and return host objects. ``iterative_render`` and
 ``render_huge`` stream batch after batch through the fused render
-(``parallel/render.py``) and store no sections.
+(``parallel/render.py``) and store no sections. ``focus_search`` reduces the
+kept sections to ray lines on the device and sweeps the focus costs there
+(``analysis/focus.py``).
 
 Not ported yet (see ROADMAP.md): ``render_huge`` over several devices
-(``mesh``), ``focus_search``.
+(``mesh``).
 """
 
 import warnings
@@ -21,6 +23,7 @@ from enum import IntEnum
 from typing import Any
 
 import numpy as np
+import scipy.optimize
 import torch
 
 from .detector import detector_hits, build_segment_mask, sphere_projection_xy
@@ -33,6 +36,7 @@ from ..geometry import (Group, Lens, IdealLens, Filter, Aperture, Detector, RayS
 from ..image.render_image import RenderImage
 from ..spectrum.refraction_index import RefractionIndex
 from ..spectrum.light_spectrum import LightSpectrum
+from ..analysis import focus
 from ..utils.device import resolve_device
 from ..utils.global_options import global_options
 from ..utils.property_checker import PropertyChecker as pc
@@ -47,6 +51,9 @@ class Raytracer(Group):
     MAX_RAY_STORAGE_RAM: int = 6000000000
     ITER_RAYS_STEP: int = 1000000
     T_TH: float = 0.0
+
+    focus_search_methods: list = ['RMS Spot Size', 'Irradiance Variance',
+                                  'Image Sharpness', 'Image Center Sharpness']
 
     class INFOS(IntEnum):
         ABSORB_MISSING = 0
@@ -109,6 +116,8 @@ class Raytracer(Group):
 
     def property_snapshot(self) -> dict:
         return self.tracing_snapshot() | dict(
+            Markers=[D.crepr() for D in self.markers],
+            Volumes=[D.crepr() for D in self.volumes],
             Detectors=[D.crepr() for D in self.detectors])
 
     def tracing_snapshot(self) -> dict:
@@ -791,3 +800,103 @@ class Raytracer(Group):
         if limit is not None:
             img._apply_rayleigh_filter()
         return img
+
+    # ------------------------------------------------------------------
+    # focus search: every candidate plane's cost from the kept sections,
+    # swept on the device (analysis/focus.py)
+
+    def _focus_bracket(self, z_start: float) -> list:
+        """Search interval: the gap between neighboring tracing surfaces
+        (or source/outline limits) that contains z_start."""
+        tops = np.array([s.z_max for s in self.tracing_surfaces])
+        beyond = tops > z_start
+        k = int(np.argmax(beyond)) if beyond.any() else len(tops)
+        lo = float(tops[k - 1]) if k \
+            else self.N_EPS + max(rs.extent[5] for rs in self.ray_sources)
+        hi = float(self.tracing_surfaces[k].z_min) if k < len(tops) \
+            else self.outline[5] - self.N_EPS
+        return [lo, hi]
+
+    def _focus_ray_lines(self, bounds, source_index):
+        """Reduce the stored sections to transverse lines q(z) = q0 + m*z,
+        in f64 on the raytracer's device.
+
+        Picks, per ray, the last stored section at or before the bracket
+        start; rays that never reach it are dropped.
+        """
+        lo_i, hi_i = (0, self.rays.N) if source_index is None \
+            else self.rays.B_list[source_index:source_index + 2]
+        with torch.no_grad():
+            p, w, _ = self._sections(int(lo_i), int(hi_i))
+            # f32-aware probe: stored section z carries ~eps·|z| noise, so a
+            # section sitting exactly on the bound must count as before it
+            z_probe = bounds[0] + max(1e-4 * max(1.0, abs(bounds[0])), self.N_EPS)
+            crossed = z_probe < p[:, :, 2]
+            seg = torch.argmax(crossed.to(torch.uint8), dim=1) - 1     # all-False rows give -1
+            rows = torch.nonzero(seg >= 0)[:, 0]
+            seg = seg[rows]
+            p0 = p[rows, seg]
+            s = p[rows, torch.clamp(seg + 1, max=p.shape[1] - 1)] - p0
+            s = s / torch.linalg.vector_norm(s, dim=-1, keepdim=True)
+            m = s[:, :2] / s[:, 2:3]
+            q0 = p0[:, :2] - m * p0[:, 2:3]
+            return q0, m, w[rows, seg]
+
+    def focus_search(self, method: str, z_start: float, source_index: int = None,
+                     return_cost: bool = False):
+        """Find the focus along z near z_start.
+
+        :return: (scipy OptimizeResult, dict(pos, bounds, z, cost, N))
+        """
+        if not (self.outline[4] <= z_start <= self.outline[5]):
+            raise ValueError(f"Starting position z_start={z_start} outside raytracer "
+                             f"z-outline range {self.outline[4:]}.")
+        if method not in self.focus_search_methods:
+            raise ValueError(f"Invalid method '{method}', should be one of {self.focus_search_methods}.")
+        if not self.rays.N:
+            raise RuntimeError("No rays traced.")
+        if source_index is not None and source_index < 0:
+            raise IndexError(f"source_index needs to be >= 0, but is {source_index}")
+        if (source_index is not None and source_index > len(self.rays.N_list)) or len(self.rays.N_list) == 0:
+            raise IndexError(f"source_index={source_index} larger than number of simulated sources.")
+        if not self.check_if_rays_are_current():
+            raise RuntimeError("Tracing geometry/properties changed. Please retrace first.")
+
+        bounds = self._focus_bracket(z_start)
+        q0, m, w = self._focus_ray_lines(bounds, source_index)
+
+        N_use = q0.shape[0]
+        if N_use < 1000:
+            warning(f"WARNING: Less than 1000 rays for focus_search ({N_use}).")
+        if N_use <= 1:
+            return scipy.optimize.OptimizeResult(), \
+                dict(pos=[np.nan, np.nan, np.nan], bounds=bounds,
+                     z=np.full(focus.SWEEP_SAMPLES, np.nan),
+                     cost=np.full(focus.SWEEP_SAMPLES, np.nan), N=N_use)
+
+        # the sweeps take the lines in f32, the closed form in f64
+        q0f, mf, wf = q0.float(), m.float(), w.float()
+        n_px = focus.histogram_side(N_use)
+        with torch.no_grad():
+            if method == "RMS Spot Size":
+                z_best = focus.rms_focus_direct(q0, m, w, bounds)
+            else:
+                z_best = focus.minimize_on_interval(q0f, mf, wf, bounds, method, n_px)
+
+            res = scipy.optimize.OptimizeResult()
+            res.x = z_best
+            res.fun = float(focus.cost_sweep([z_best], q0f, mf, wf, method, n_px)[0])
+
+            margin = 10 * (bounds[1] - bounds[0]) / focus.SWEEP_SAMPLES
+            if min(z_best - bounds[0], bounds[1] - z_best) < margin:
+                warning("Found minimum near search bounds, "
+                        "this can mean the focus is outside of the search range.")
+
+            r = vals = None
+            if return_cost:
+                r = np.linspace(bounds[0], bounds[1], focus.SWEEP_SAMPLES)
+                vals = focus.cost_sweep(np.float32(r), q0f, mf, wf, method, n_px).cpu().numpy()
+
+            pos = ((q0 + m * z_best) * w[:, None]).sum(dim=0) / w.sum()
+        return res, dict(pos=tuple(pos.tolist()) + (z_best,), bounds=bounds, z=r, cost=vals,
+                         N=N_use)

@@ -6,8 +6,11 @@ function of tensors; this module extracts from each host-side Surface a
 0-dim/(3,) tensors on the trace's device and the fns are closures over
 *static structure only*. Geometric quantities flow through the params dict,
 which keeps the plain trace differentiable w.r.t. the optical design.
-``host`` carries the same quantities as python floats: the run kernel's
-step table is built from them without a device round trip.
+``host`` carries the same quantities as numpy values: the run kernel's
+step table and the frame chain are built from them without a device round
+trip. They are always read from ``params`` (:func:`with_params` for a new
+parameter dict, :func:`host_values` for one that was swapped in by
+``_replace``), so every route of the trace sees the same surfaces.
 
 Ported surface kinds: the planar shapes (``rect``, ``slit``, ``ring``,
 ``circle``), ``conic`` (spheres included), ``asphere`` (even asphere) and
@@ -42,7 +45,8 @@ class SurfaceFns(NamedTuple):
     mask_fn: Callable
     kind: str
     is_flat: bool
-    host: dict = None     # params as python floats / numpy (same rounding)
+    host: dict = None     # params as numpy values (same rounding)
+    host_of: dict = None  # the params dict that ``host`` was read from
 
 
 def _mask_circle_fn(params, x, y):
@@ -133,7 +137,30 @@ def surface_fns(kind: str, params_np: dict, device, dtype=torch.float32) -> Surf
     host = {k: np.asarray(v, dtype=npdt) for k, v in params_np.items()}
     params = {k: torch.tensor(v, device=device) for k, v in host.items()}
     hit_fn, normal_fn, mask_fn, is_flat = _KIND_FNS[kind]
-    return SurfaceFns(params, hit_fn, normal_fn, mask_fn, kind, is_flat, host)
+    return SurfaceFns(params, hit_fn, normal_fn, mask_fn, kind, is_flat, host, params)
+
+
+def read_host(params: dict) -> dict:
+    """The numpy values of a parameter dict, each in its tensor's own type
+    (one device round trip per tensor)."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def with_params(sfns: SurfaceFns, params: dict, host: dict = None) -> SurfaceFns:
+    """``sfns`` with another parameter dict and the host values read from
+    it; ``host`` gives values that the caller already read (all tensors of
+    a design step come back in one copy). A parameter dict is replaced,
+    never changed in place."""
+    return sfns._replace(params=params, host=read_host(params) if host is None else host,
+                         host_of=params)
+
+
+def host_values(sfns: SurfaceFns) -> dict:
+    """The host values of ``sfns.params``: the kept ones when they were read
+    from this very dict, else read now."""
+    if sfns.host is not None and sfns.host_of is sfns.params:
+        return sfns.host
+    return read_host(sfns.params)
 
 
 def compile_surface(surf: Surface, device, dtype=torch.float32) -> SurfaceFns:

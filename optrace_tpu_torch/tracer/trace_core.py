@@ -32,11 +32,12 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..ops import geom
 from ..ops.cuda_run import conic_run, conic_run_reference, PreparedRun, ABSORB_KINDS
 from ..ops.vector import rdot, cross, normalize_safe
-from .scene_compile import SurfaceFns
+from .scene_compile import SurfaceFns, host_values
 
 INV_SQRT2 = 1.0 / np.sqrt(2.0)
 
@@ -170,13 +171,15 @@ def _refract_core(n, n1, n2, s, w, pols, hit, no_pol):
 
 def _refract_ideal(step: TraceStep, p_new, s, pols, hit, no_pol):
     """Ideal-lens refraction: focuses to the paraxial image plane without
-    aberrations. f in mm = 1000/D[dpt]."""
+    aberrations. f in mm = 1000/D[dpt]; ``D`` may be a 0-dim tensor that
+    needs a gradient."""
     f = 1000.0 / step.D
     fsz = f / s[:, 2]
     sx = s[:, 0] * fsz - p_new[:, 0]
     sy = s[:, 1] * fsz - p_new[:, 1]
-    s_ = torch.stack([sx, sy, torch.full_like(sx, f)], dim=-1)
-    s_ = normalize_safe(s_) * math.copysign(1.0, f)
+    s_ = torch.stack([sx, sy, torch.zeros_like(sx) + f], dim=-1)
+    sign = torch.sign(f) if isinstance(f, torch.Tensor) else math.copysign(1.0, f)
+    s_ = normalize_safe(s_) * sign
 
     _, _, pols_new = _compute_polarization(s, s_, pols, hit, no_pol)
     s_new = torch.where(hit[:, None], s_, s)
@@ -270,13 +273,18 @@ def _frame_chain(steps, dtype):
     """Host-side local-frame origin chain: per step (pos_h f64, applied
     delta in the trace dtype, applied origin f64). Shared by the unrolled
     steps and the runs so both apply bit-identical frame shifts.
-    ``dtype`` is a numpy dtype."""
+    ``dtype`` is a numpy dtype. The vertex is the f64 ``pos_host`` while
+    ``params["pos"]`` is its rounding, else the position that the
+    parameters hold: a moved surface moves its frame on every route."""
     prev = np.zeros(3, dtype=np.float64)
     chain = []
     for step in steps:
-        pos_h = np.asarray(step.pos_host, dtype=np.float64) \
-            if step.pos_host is not None \
-            else np.asarray(step.sfns.host["pos"], dtype=np.float64)
+        pos_p = host_values(step.sfns)["pos"]
+        if step.pos_host is not None and np.array_equal(
+                np.asarray(step.pos_host, dtype=pos_p.dtype), pos_p):
+            pos_h = np.asarray(step.pos_host, dtype=np.float64)
+        else:
+            pos_h = np.asarray(pos_p, dtype=np.float64)
         delta = np.asarray(pos_h - prev, dtype=dtype)
         prev = prev + np.asarray(delta, dtype=np.float64)
         chain.append((pos_h, delta, prev.copy()))
@@ -376,27 +384,37 @@ def _media_rows(steps, run_idxs, amb_fn_at=None):
     return media, pairs
 
 
+def _tracks_grad(t) -> bool:
+    """Whether a derivative flows through ``t``: autograd records it (it
+    requires a gradient and grad mode is on) or it carries a forward-mode
+    tangent."""
+    return (t.requires_grad and torch.is_grad_enabled()) \
+        or fwAD.unpack_dual(t).tangent is not None
+
+
 def _run_needs_plain(steps, idxs, p, s, w, pols, n_tab, no_pol) -> bool:
     """Whether a run must take the plain PyTorch loop although its tensors
     may lie on a CUDA device: the kernel holds f32 state and has no
-    backward, so f64 state and every operand or surface parameter that
-    requires a gradient keep the plain loop. ``cuda_trace=False`` selects
-    the plain loop for comparison."""
+    derivative, so f64 state and every operand or surface parameter that
+    a derivative flows through keep the plain loop (under
+    ``torch.no_grad()`` autograd records nothing, and the kernel runs).
+    ``cuda_trace=False`` selects the plain loop for comparison."""
     from ..utils.global_options import global_options
     if not global_options.cuda_trace or p.dtype != torch.float32:
         return True
     operands = [p, s, w, n_tab] + ([] if no_pol else [pols])
-    if any(t is not None and t.requires_grad for t in operands):
+    if any(t is not None and _tracks_grad(t) for t in operands):
         return True
-    return any(v.requires_grad for i in idxs for v in steps[i].sfns.params.values())
+    return any(_tracks_grad(v) for i in idxs for v in steps[i].sfns.params.values())
 
 
 def _run_steps(steps, idxs, chain, outline64):
-    """The per-step constant dicts of a run (python floats)."""
+    """The per-step constant dicts of a run (python floats), from the
+    values that the steps' parameters hold."""
     out = []
     for i in idxs:
         st = steps[i]
-        h = st.sfns.host
+        h = host_values(st.sfns)
         kind = st.sfns.kind
         pos_h, delta, origin = chain[i]
         c = dict(
@@ -420,27 +438,57 @@ def _run_steps(steps, idxs, chain, outline64):
     return out
 
 
-def _run_differentiable_steps(steps, idxs, chain, consts):
-    """For the gradient path: put the surface parameters that require a
-    gradient back into the constant dicts as tensors, so that the plain
-    loop differentiates through them."""
+def _pos_residuals(steps, chain):
+    """Per step, ``params["pos"]`` minus the static vertex of the frame
+    chain where the position needs a gradient (0 in value; the frame shift
+    itself is a constant), else None."""
+    out = []
+    for st, (pos_h, _, _) in zip(steps, chain):
+        pp = st.sfns.params["pos"]
+        out.append(pp - torch.as_tensor(pos_h, dtype=pp.dtype, device=pp.device)
+                   if _tracks_grad(pp) else None)
+    return out
+
+
+def _frame_residual(res, i):
+    """The residual shift that step ``i`` applies on top of its frame delta:
+    its own position residual less the previous step's, so that the ray
+    state stays relative to the vertex that the parameters describe (a lens
+    whose two surfaces move together keeps its inner frame). None if both
+    are."""
+    r, r_prev = res[i], res[i - 1] if i else None
+    if r is None and r_prev is None:
+        return None
+    return (r if r is not None else 0.0) - (r_prev if r_prev is not None else 0.0)
+
+
+def _run_differentiable_steps(steps, idxs, chain, consts, residuals=None):
+    """For the gradient path: put the surface parameters that a derivative
+    flows through (:func:`_tracks_grad`) back into the constant dicts as
+    tensors, so that the plain loop differentiates through them. A position
+    enters as the residual shift of :func:`_frame_residual` (``dpos``), the
+    residual of the step's own vertex for its stored section (``rpos``) and
+    the outline box moved by it. ``residuals`` are those of
+    :func:`_pos_residuals`."""
+    res = _pos_residuals(steps, chain) if residuals is None else residuals
     for c, i in zip(consts, idxs):
         pr = steps[i].sfns.params
         for key, name in (("rho", "rho"), ("k", "k"), ("r", "r"),
                           ("z_min", "z_min_rel"), ("z_max", "z_max_rel"),
                           ("ri", "ri"), ("hw", "hw"), ("hh", "hh"), ("hwi", "hwi"),
                           ("hhi", "hhi"), ("angle", "angle")):
-            if name in pr and pr[name].requires_grad:
+            if name in pr and _tracks_grad(pr[name]):
                 c[key] = pr[name]
-        if "coeff" in c and pr["coeff"].requires_grad:
+        if "coeff" in c and _tracks_grad(pr["coeff"]):
             c["coeff"] = tuple(pr["coeff"][q] for q in range(len(c["coeff"])))
-        if "tn" in c and pr["normal"].requires_grad:
+        if "tn" in c and _tracks_grad(pr["normal"]):
             c["tn"] = tuple(pr["normal"][q] for q in range(3))
-        if pr["pos"].requires_grad:
-            # residual between the parameter tensor and the static position
-            # (exactly 0 in the forward pass), as in the unrolled step
-            c["dpos"] = pr["pos"] - torch.as_tensor(chain[i][0], dtype=pr["pos"].dtype,
-                                                    device=pr["pos"].device)
+        shift = _frame_residual(res, i)
+        if shift is not None:
+            c["dpos"] = shift
+        if res[i] is not None:
+            c["rpos"] = res[i]
+            c["out"] = tuple(c["out"][q] - res[i][q // 2] for q in range(6))
     return consts
 
 
@@ -479,7 +527,7 @@ class RunPlans:
 
 
 def _conic_run_dispatch(steps, idxs, chain, outline64, n_tab, pairs,
-                        p, s, w, pols, no_pol, store_sections, plans):
+                        p, s, w, pols, no_pol, store_sections, plans, residuals):
     """Call one run (kernel or plain loop) with its per-step constants and
     media row pairs, and shape its outputs for :func:`trace_bundle`. The
     kernel's run comes prepared from ``plans``; the gradient and f64 path
@@ -488,7 +536,7 @@ def _conic_run_dispatch(steps, idxs, chain, outline64, n_tab, pairs,
     pol_in = None if no_pol else pols
     if _run_needs_plain(steps, idxs, p, s, w, pols, n_tab, no_pol):
         consts = _run_steps(steps, idxs, chain, outline64)
-        consts = _run_differentiable_steps(steps, idxs, chain, consts)
+        consts = _run_differentiable_steps(steps, idxs, chain, consts, residuals)
         (p2, s2, w2, pols2), (counts, ys_p, ys_w, ys_pol) = conic_run_reference(
             p, s, w, n_tab, med_idx, consts, pol=pol_in, store=store_sections)
     else:
@@ -568,6 +616,7 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
     # O(eps·|z_absolute|) — see TraceStep.pos_host
     chain = _frame_chain(steps, np_dtype)
     runs = _partition_runs(steps, [m for _, _, m in sink_list], use_hurb)
+    residuals = _pos_residuals(steps, chain)
     if plans is None:
         plans = RunPlans(steps)
 
@@ -584,7 +633,7 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
             (p, s, w, pols, run_infos, run_p, run_w,
              run_pol) = _conic_run_dispatch(
                 steps, run_idxs, chain, outline64, n_tab, pairs,
-                p, s, w, pols, no_pol, store_sections, plans)
+                p, s, w, pols, no_pol, store_sections, plans, residuals)
             L = len(run_idxs)
             infos.extend(run_infos[i] for i in range(L))
             if store_sections:
@@ -606,13 +655,15 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         pos_h, delta_applied, origin = chain[idx]
         if np.any(delta_applied):
             p = p - torch.as_tensor(delta_applied, dtype=p.dtype, device=dev)
-        # residual between the parameter tensor and the static position
-        # (exactly 0 in the forward pass): keeps d(image)/d(surface
-        # position) flowing although the frame shift itself is a constant
-        if step.sfns.params["pos"].requires_grad:
-            p = p - (step.sfns.params["pos"]
-                     - torch.as_tensor(pos_h, dtype=p.dtype, device=dev))
+        # residuals of the position parameters (exactly 0 in the forward
+        # pass): keep d(image)/d(surface position) flowing although the
+        # frame shift itself is a constant
+        shift, res = _frame_residual(residuals, idx), residuals[idx]
+        if shift is not None:
+            p = p - shift
         out_rel = tuple(float(outline64[i] - origin[i // 2]) for i in range(6))
+        if res is not None:
+            out_rel = tuple(out_rel[i] - res[i // 2] for i in range(6))
 
         p_prev = p
         w_prev = w
@@ -655,6 +706,8 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
             # at output, does not feed back into the trace state); rebase
             # from the APPLIED origin, the frame p actually lives in
             off = torch.as_tensor(origin, dtype=p.dtype, device=dev)
+            if res is not None:
+                off = off + res
             p_abs = p + off
             if sink_list:
                 p_prev_abs = p_prev + off

@@ -28,7 +28,9 @@ for _new in ("ops/cuda_trace.py", "csrc/trace_step.cuh", "csrc/conic_step.cu", "
              "geometry/surface/aspheric_surface.py", "geometry/surface/tilted_surface.py",
              "geometry/surface/slit_surface.py", "geometry/ideal_lens.py", "geometry/filter.py",
              "spectrum/transmission_spectrum.py", "presets/image.py", "parallel/checkpoint.py",
-             "parallel/render.py", "ops/binning.py", "tracer/detector.py"):
+             "parallel/render.py", "ops/binning.py", "tracer/detector.py", "tracer/diff.py",
+             "analysis/tma.py", "analysis/focus.py", "analysis/convolve.py", "presets/psf.py",
+             "geometry/marker.py", "geometry/volume.py", "presets/geometry.py"):
     assert ROOT / "optrace_tpu_torch" / _new in PORT_FILES, _new
 
 
@@ -60,7 +62,8 @@ def _cpu_raytracer(**kw):
 
 
 @pytest.mark.parametrize("entry", ["Raytracer", "make_fused_render", "make_generator",
-                                   "resolve_device", "iterative_render", "render_huge"])
+                                   "resolve_device", "iterative_render", "render_huge",
+                                   "convolve"])
 def test_entry_points_raise_without_cuda(entry):
     """``device=None`` means the CUDA device: with no card it raises and
     never carries on on the CPU."""
@@ -76,6 +79,10 @@ def test_entry_points_raise_without_cuda(entry):
         # renders cannot start on the CPU by accident
         "iterative_render": lambda: otp.Raytracer(outline=[-1, 1, -1, 1, -1, 1]).iterative_render(100),
         "render_huge": lambda: otp.Raytracer(outline=[-1, 1, -1, 1, -1, 1]).render_huge(100),
+        # the design render and the focus search run on the raytracer's
+        # device; the convolution takes its own
+        "convolve": lambda: otp.convolve(otp.presets.psf.gaussian(sig=20.0),
+                                         otp.presets.psf.gaussian(sig=0.5)),
     }
     with pytest.raises(RuntimeError, match="CUDA"), otp.global_options.no_progress_bar():
         calls[entry]()

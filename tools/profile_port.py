@@ -4,6 +4,7 @@
     python3 tools/profile_port.py [--batches 4] [--rays 1000000] [--fuse-planar] [--out profile.json]
     python3 tools/profile_port.py --kernel-times [--root DIR] [--rays 1000000]
     python3 tools/profile_port.py --iterative [--batches 4] [--rays 1000000]
+    python3 tools/profile_port.py --design [--batches 4] [--rays 1000000]
 
 Renders the double Gauss (the scene of chip_smoke.py) under torch.profiler
 and prints one JSON object: wall time per batch, the device's busy time and
@@ -32,6 +33,14 @@ device launches and kernel 1 and 2 launches a batch, and the parts of the
 first (stored) batch timed on their own: ``trace`` with its copy to the
 host, ``detector_image`` from the sections kept on the card, and one fused
 batch with two sinks.
+
+``--design`` profiles the design render of chip_smoke.py's design phase
+(``tracer/diff.py:make_parameterized_render`` of the double Gauss, 189²
+soft-binned pixels over ±0.3 mm, ``spot_loss``): one ``value_and_grad`` step
+with respect to the 14 curvatures (the runs take the plain loop) and one
+evaluation of the loss alone (the runs take kernel 1), each ``--batches``
+times: wall ms, the device's busy ms and idle share, device launches, and
+the launches of kernel 1 and of the plain loop an evaluation.
 
 ``--sass`` builds the kernels and counts, for every kernel in the libraries,
 the instructions of its disassembly (``cuobjdump -sass``) by opcode: loads
@@ -241,6 +250,71 @@ def iterative_profile(args, smi):
     return 0
 
 
+def design_profile(args, smi):
+    """One value_and_grad step and one loss-only evaluation of the design
+    render under the profiler, and by the host's clock."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    from torch.autograd import DeviceType
+    import optrace_tpu_torch as ot
+    import chip_smoke as cs
+    from optrace_tpu_torch.ops import cuda_run
+    from optrace_tpu_torch.tracer.diff import make_parameterized_render, spot_loss
+
+    RT = cs.double_gauss_scene(ot, no_pol=True)
+    render, params0 = make_parameterized_render(RT, args.rays, extent=list(cs.DESIGN_EXT),
+                                                Nx=cs.DESIGN_PIXELS, Ny=cs.DESIGN_PIXELS)
+    loss_fn = spot_loss(render)
+    idx = [i for i, p in enumerate(params0) if "rho" in p]
+    rhos0 = torch.stack([params0[i]["rho"] for i in idx])
+
+    def evaluate(grad):
+        r = rhos0.clone().requires_grad_(grad)
+        params = [dict(p) for p in params0]
+        for k, i in enumerate(idx):
+            params[i]["rho"] = r[k]
+        with torch.set_grad_enabled(grad):
+            val = loss_fn(params, cs.DESIGN_SEED, cs.DESIGN_EXT)
+            if grad:
+                val.backward()
+        return float(val.detach())
+
+    out = {}
+    for label, grad in (("value_and_grad", True), ("loss_only", False)):
+        evaluate(grad)                       # builds the kernels, warms up
+        torch.cuda.synchronize()
+        cuda_run.reset_launch_counts()
+        with cs.PlainRunCounter() as plain:
+            t0 = time.perf_counter()
+            for _ in range(args.batches):
+                evaluate(grad)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / args.batches
+        launches_1, launches_plain = cuda_run.conic_run.launches, plain.calls
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.batches):
+                evaluate(grad)
+            torch.cuda.synchronize()
+        busy_us = count = 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                busy_us += ev.self_device_time_total
+                count += ev.count
+        if not count:
+            print("profile_port: the profiler recorded no device time", file=sys.stderr)
+            return 1
+        busy_ms = busy_us / 1e3 / args.batches
+        out[label] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                          device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+                          device_launches=count / args.batches,
+                          conic_run_launches=launches_1 / args.batches,
+                          plain_run_calls=launches_plain / args.batches)
+    print(json.dumps(dict(gpu=smi, scene="double_gauss", entry="tracer/diff.py:make_parameterized_render",
+                          rays=args.rays, image=[cs.DESIGN_PIXELS] * 2, extent=list(cs.DESIGN_EXT),
+                          curvatures=len(idx), evaluations=args.batches, **out)))
+    return 0
+
+
 def sass_counts(smi):
     """Instructions by opcode in every kernel of the built libraries."""
     import collections
@@ -286,6 +360,8 @@ def main():
                     help="time the run kernel alone, 20 launches between one pair of events")
     ap.add_argument("--iterative", action="store_true",
                     help="profile Raytracer.iterative_render over --batches batches of --rays rays")
+    ap.add_argument("--design", action="store_true",
+                    help="profile a value_and_grad step and a loss-only evaluation of the design render")
     ap.add_argument("--sass", action="store_true",
                     help="count the instructions of every kernel's disassembly by opcode")
     ap.add_argument("--root", default=str(REPO),
@@ -313,6 +389,8 @@ def main():
         return kernel_times(args, smi)
     if args.iterative:
         return iterative_profile(args, smi)
+    if args.design:
+        return design_profile(args, smi)
     RT = double_gauss_scene(ot, no_pol=True)
     render, _ = ot.make_fused_render(RT, args.rays, Nx=args.pixels, Ny=args.pixels)
     with torch.no_grad():
