@@ -19,8 +19,12 @@ resumed, spherical detector), differentiates a spot loss of the double Gauss
 with respect to its 14 curvatures (autograd against finite differences,
 kernel route against plain route, five design steps), searches its focus
 with all four methods, convolves images with a PSF preset and with its
-detector image, traces the Arizona eye, and checks that every path went
-through its kernels (launch counters). Every phase prints one JSON line; the last line is
+detector image, traces the Arizona eye, traces the double Gauss with a
+data-surface front and the cosine-surface lens of examples/cosine_surfaces.py
+(the generic step unrolled between runs; the card against the CPU on 10⁵
+rays), loads a synthetic ZEMAX prescription and catalog and traces it, and
+checks that every path went through its kernels (launch counters). Every
+phase prints one JSON line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure exits with a non-zero code. Without a CUDA device the script
 fails at once: nothing here runs on the CPU.
@@ -89,6 +93,15 @@ TOL_LOSS_REL = 1e-6             # the loss by the plain run against the kernel r
 FOCUS_SUBSET, FOCUS_PLANES = 10 ** 5, 16    # card against CPU cost sweep
 TOL_FOCUS_COST = 1e-4           # relative: the same f32 operations, sums in another order
 TOL_CONVOLVE = 1e-6             # card against CPU, both f64, on the [0, 1] sRGB range
+# generic and zmx phases: the card's sections against the same port code on the
+# CPU for a subset of the rays, with the CPU parity tests' tolerances
+# (tests/test_torch_common.py): positions rtol 5e-6 / atol 2e-5 mm (2e-4 mm at
+# the end of the free flight to the outline), weights rtol 2e-6 / atol 1e-9,
+# and at most 4 rays per 20 000 whose hit/miss history differs
+GENERIC_SUBSET = 10 ** 5
+SEC_P_RTOL, SEC_P_ATOL, SEC_P_ATOL_THROW = 5e-6, 2e-5, 2e-4
+SEC_W_RTOL, SEC_W_ATOL = 2e-6, 1e-9
+SEC_FLIPS_PER_20K = 4
 
 
 def emit(obj):
@@ -636,15 +649,22 @@ def device_kernel_ms(fn, name, calls=10):
 
 def device_launches(fn):
     """Kernel launches on the device during fn(), counted by torch.profiler."""
+    return device_busy(fn)[0]
+
+
+def device_busy(fn):
+    """(kernel launches, device-busy ms) during fn(), by torch.profiler: the
+    sum of the kernels' own device times."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     from torch.autograd import DeviceType
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    n = sum(ev.count for ev in evs)
     assert n > 0, "the profiler recorded no kernel on the device"
-    return int(n)
+    return int(n), sum(ev.self_device_time_total for ev in evs) / 1e3
 
 
 def run_partition(ot, RT, sink_masks=()):
@@ -1019,6 +1039,383 @@ def eye_phase(ot, smi, n=N_RAYS):
               detector_image_seconds=t_image, kernel_eye5=row))
     return ({"conic_run[nopol,store]@eye5": traced[True][2], "bin_xyzw@eye": 1},
             {"conic_run[nopol,store]@eye5": row, "bin_xyzw@eye": bin_eye})
+
+
+# ----------------------------------------------------------------------
+# generic surfaces and the ZEMAX loader: each phase drives its paths with the
+# counters set to 0 just before each and returns its launches and its rows
+
+def data_double_gauss_scene(ot, no_pol=True):
+    """The double Gauss with its first surface a DataSurface2D sampled on a
+    201 × 201 grid from the same sphere (r = 38 mm, R = 78.36 mm): a generic
+    step, unrolled, before runs of 5 and 8."""
+    import numpy as np
+    from optrace_tpu_torch.presets.geometry import double_gauss
+    RT = ot.Raytracer(outline=[-150, 150, -150, 150, -50001, 180], no_pol=no_pol)
+    RT.add(ot.RaySource(ot.Point(), divergence="Isotropic", orientation="Converging",
+                        conv_pos=[0, 0, 0], div_angle=0.03, pos=[0, 0, -50000],
+                        spectrum=ot.LightSpectrum("Constant")))
+    G = double_gauss()
+    L0 = G.lenses[0]
+    xy = np.linspace(-38.0, 38.0, 201)
+    X, Y = np.meshgrid(xy, xy)
+    rho, r2 = 1 / 78.36, X ** 2 + Y ** 2
+    Z = rho * r2 / (1 + np.sqrt(np.clip(1 - rho * rho * r2, 0, None)))
+    front = ot.DataSurface2D(r=38.0, data=Z.T)
+    G.remove(L0)
+    G.add(ot.Lens(front, ot.SphericalSurface(r=38.0, R=469.5), n=L0.n, pos=[0, 0, 0], d1=0,
+                  d2=9.8837))
+    RT.add(G)
+    return RT
+
+
+def cosine_lens_scene(ot, no_pol=True):
+    """The lens of examples/cosine_surfaces.py: two FunctionSurface2D faces
+    with crossed cosine modulation (the example's z bounds leave part of each
+    face without a sign change in its bracket: ILL_COND counts them)."""
+    import numpy as np
+    import torch
+    RT = ot.Raytracer(outline=[-5, 5, -5, 5, -10, 60], no_pol=no_pol)
+    RT.add(ot.RaySource(ot.CircularSurface(r=2.5), divergence="None",
+                        spectrum=ot.LightSpectrum("Monochromatic", wl=550), pos=[0, 0, -5]))
+    front = ot.FunctionSurface2D(r=3, func=lambda x, y: 0.05 * torch.cos(4 * np.pi * x),
+                                 z_min=-0.05, z_max=0.05)
+    back = ot.FunctionSurface2D(r=3, func=lambda x, y: 0.05 * torch.cos(4 * np.pi * y),
+                                z_min=-0.05, z_max=0.05)
+    RT.add(ot.Lens(front, back, n=ot.presets.refraction_index.PMMA, pos=[0, 0, 0], d=0.5))
+    RT.add(ot.Detector(ot.RectangularSurface(dim=[8, 8]), pos=[0, 0, 40]))
+    return RT
+
+
+def card_vs_cpu(ot, RT, n, seed, subset=GENERIC_SUBSET):
+    """The first ``subset`` rays of an n-ray bundle, traced on the card
+    (kernel 1 on the runs, the unrolled steps in eager PyTorch) and by the
+    same port code on the CPU: stored sections within the CPU parity tests'
+    tolerances, at most SEC_FLIPS_PER_20K rays a 20 000 whose hit/miss
+    history differs, INFOS apart by at most two a flipped ray."""
+    import torch
+    from optrace_tpu_torch.tracer.trace_core import trace_bundle
+    RT.rays.init(RT.ray_sources, n, len(RT.tracing_surfaces) + 2, RT.no_pol)
+    outline = tuple(float(v) for v in RT.outline)
+    with torch.no_grad():
+        bundle = [t[:subset] for t in RT._make_source_fn(n)(ot.make_generator(seed))]
+        card = trace_bundle(RT._build_steps(), RT.n0, outline, *bundle, RT.no_pol)
+        cpu = trace_bundle(RT._build_steps(device="cpu"), RT.n0, outline,
+                           *(t.cpu() for t in bundle), RT.no_pol)
+    pk, wk = card["p"].cpu(), card["w"].cpu()
+    pc, wc = cpu["p"], cpu["w"]
+    flipped = torch.any((wk > 0) != (wc > 0), dim=1)
+    n_flip = int(flipped.sum())
+    assert n_flip <= SEC_FLIPS_PER_20K * subset / 20000, f"{n_flip} rays flipped"
+    keep = ~flipped
+    d_p = (pk[keep] - pc[keep]).abs()
+    lim = SEC_P_ATOL + SEC_P_RTOL * pc[keep].abs()
+    lim[:, -1] = SEC_P_ATOL_THROW + SEC_P_RTOL * pc[keep][:, -1].abs()
+    d_w = (wk[keep] - wc[keep]).abs()
+    assert bool((d_p <= lim).all()), f"sections differ by {float(d_p.max())}"
+    assert bool((d_w <= SEC_W_ATOL + SEC_W_RTOL * wc[keep].abs()).all()), float(d_w.max())
+    d_infos = int((card["infos"].cpu() - cpu["infos"]).abs().sum())
+    assert d_infos <= 2 * n_flip, f"INFOS differ by {d_infos} with {n_flip} flipped rays"
+    return dict(rays=int(pc.shape[0]), flips=n_flip, max_abs_p=float(d_p.max()),
+                max_abs_p_before_last=float(d_p[:, :-1].max()), max_abs_w=float(d_w.max()),
+                infos=cpu["infos"].sum(dim=1).tolist(), infos_abs_diff=d_infos)
+
+
+def generic_phase(ot, smi, n=N_RAYS):
+    """Function and data surfaces on the card at 10⁶ rays. (i) The double
+    Gauss with a data-surface front: Raytracer.trace (kernel 1 on the runs of
+    5 and 8 around the unrolled generic step), detector_image (kernel 2), one
+    fused-render batch; the generic step's launches and device time beside the
+    whole trace's; the card's sections against the CPU's on 10⁵ rays. (ii)
+    The cosine lens of examples/cosine_surfaces.py: trace, image, the same
+    CPU check."""
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
+    from optrace_tpu_torch.image import render_image as render_image_mod
+    from optrace_tpu_torch.parallel import render as render_mod
+    from optrace_tpu_torch.tracer.trace_core import trace_bundle, ILL_COND
+    launches, rows, out = {}, {}, {}
+
+    # (i) the data-surface double Gauss
+    RT = data_double_gauss_scene(ot)
+    runs = run_partition(ot, RT)
+    kinds = [st.sfns.kind for st in RT._build_steps()]
+    assert runs == [5, 8] and kinds[0] == "generic" and kinds.count("generic") == 1, (runs, kinds)
+    RT.trace(20000)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    RT.trace(n)
+    t_trace = time.perf_counter() - t0
+    assert conic_run.launches == 2 and conic_run.variant_launches == {(False, True): 2}, \
+        conic_run.variant_launches
+    launches["conic_run[nopol,store]@generic"] = conic_run.launches
+    ill = RT._msgs[ILL_COND].tolist()
+    reset_launch_counts()
+    with BinRecorder(render_image_mod) as rec:
+        t0 = time.perf_counter()
+        img = RT.detector_image()
+        t_image = time.perf_counter() - t0
+    assert bin_xyzw_cuda.launches == 1 and len(rec.calls) == 1 and img.power() > 0
+    launches["bin_xyzw@generic"] = 1
+    px, py, w_b, wl_b, Nx_b, Ny_b, ext_b = rec.calls[0]
+    rows["bin_xyzw@generic"] = check_binning(px, py, w_b, wl_b, ext_b, "bin_xyzw@generic", Nx=Nx_b, Ny=Ny_b)
+    del px, py, w_b, wl_b, rec
+
+    # the generic step alone and the whole trace, device launches and time
+    steps = RT._build_steps()
+    outline = tuple(float(v) for v in RT.outline)
+    RT.rays.init(RT.ray_sources, n, len(RT.tracing_surfaces) + 2, RT.no_pol)
+    with torch.no_grad():
+        bundle = RT._make_source_fn(n)(ot.make_generator(5))
+
+    def step_only():
+        with torch.no_grad():
+            return trace_bundle(steps[:1], RT.n0, outline, *bundle, True, store_sections=False)
+
+    def whole():
+        with torch.no_grad():
+            return trace_bundle(steps, RT.n0, outline, *bundle, True)
+    step_ms, whole_ms = cuda_ms(step_only, reps=3), cuda_ms(whole, reps=3)
+    (step_launches, step_busy), (whole_launches, whole_busy) = device_busy(step_only), device_busy(whole)
+    del bundle
+
+    # one fused-render batch
+    render, _ = ot.make_fused_render(RT, n, Nx=NX, Ny=NY)
+    with torch.no_grad():
+        render(ot.make_generator(100))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with BinRecorder(render_mod) as rec:
+            tile = render(ot.make_generator(0))
+        torch.cuda.synchronize()
+        t_render = time.perf_counter() - t0
+    assert conic_run.launches == 2 and conic_run.variant_launches == {(False, False): 2}
+    assert bin_xyzw_cuda.launches == 1 and bool(torch.isfinite(tile).all())
+    launches["conic_run[nopol,nostore]@generic_render"] = 2
+    launches["bin_xyzw@generic_render"] = 1
+    px, py, w_b, wl_b, Nx_b, Ny_b, ext_b = rec.calls[0]
+    rows["bin_xyzw@generic_render"] = check_binning(px, py, w_b, wl_b, ext_b, "bin_xyzw@generic_render",
+                                                    Nx=Nx_b, Ny=Ny_b)
+    del px, py, w_b, wl_b, rec, render
+    power_render = float(tile[..., 3].sum())
+
+    # kernel 1 on this path's own runs, against its plain version
+    for label, store in (("conic_run[nopol,store]@generic", True),
+                         ("conic_run[nopol,nostore]@generic_render", False)):
+        calls = capture_run_calls(data_double_gauss_scene(ot), n, store, seed=23)
+        assert [len(c["steps"]) for c in calls] == [5, 8]
+        rows[label] = check_run_calls(calls, label)
+        del calls
+    torch.cuda.empty_cache()
+    cmp_dg = card_vs_cpu(ot, RT, n, seed=24)
+    out["data_double_gauss"] = dict(
+        runs=runs, trace_seconds_with_host_copy=t_trace, detector_image_seconds=t_image,
+        render_ms_per_batch=t_render * 1e3, render_power=power_render, image_power=img.power(),
+        ill_conditioned_by_section=ill,
+        generic_step=dict(device_launches=step_launches, ms=step_ms, device_busy_ms=step_busy),
+        whole_trace=dict(device_launches=whole_launches, ms=whole_ms, device_busy_ms=whole_busy),
+        card_vs_cpu=cmp_dg)
+    del RT, img, tile
+
+    # (ii) the cosine lens: two generic steps, no run
+    RT = cosine_lens_scene(ot)
+    assert run_partition(ot, RT) == []
+    RT.trace(20000)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    RT.trace(n)
+    t_trace = time.perf_counter() - t0
+    assert conic_run.launches == 0
+    ill = RT._msgs[ILL_COND].tolist()
+    assert ill[1] > 0 and ill[2] > 0, ill
+    reset_launch_counts()
+    with BinRecorder(render_image_mod) as rec:
+        t0 = time.perf_counter()
+        img = RT.detector_image()
+        t_image = time.perf_counter() - t0
+    assert bin_xyzw_cuda.launches == 1 and img.power() > 0
+    launches["bin_xyzw@cosine"] = 1
+    px, py, w_b, wl_b, Nx_b, Ny_b, ext_b = rec.calls[0]
+    rows["bin_xyzw@cosine"] = check_binning(px, py, w_b, wl_b, ext_b, "bin_xyzw@cosine", Nx=Nx_b, Ny=Ny_b)
+    del px, py, w_b, wl_b, rec
+    steps = RT._build_steps()
+    outline = tuple(float(v) for v in RT.outline)
+    RT.rays.init(RT.ray_sources, n, len(RT.tracing_surfaces) + 2, RT.no_pol)
+    with torch.no_grad():
+        bundle = RT._make_source_fn(n)(ot.make_generator(6))
+
+    def cos_step():
+        with torch.no_grad():
+            return trace_bundle(steps[:1], RT.n0, outline, *bundle, True, store_sections=False)
+    cos_ms, (cos_launches, cos_busy) = cuda_ms(cos_step, reps=3), device_busy(cos_step)
+    del bundle
+    out["cosine_lens"] = dict(trace_seconds_with_host_copy=t_trace, detector_image_seconds=t_image,
+                              image_power=img.power(), ill_conditioned_by_section=ill,
+                              generic_step=dict(device_launches=cos_launches, ms=cos_ms,
+                                                device_busy_ms=cos_busy),
+                              card_vs_cpu=card_vs_cpu(ot, RT, n, seed=25))
+    emit(dict(phase="generic", gpu=smi, N=n, scenes=out,
+              tolerances=dict(p_rtol=SEC_P_RTOL, p_atol=SEC_P_ATOL, p_atol_throw=SEC_P_ATOL_THROW,
+                              w_rtol=SEC_W_RTOL, w_atol=SEC_W_ATOL, flips_per_20k=SEC_FLIPS_PER_20K),
+              launches=launches))
+    return launches, rows
+
+
+# a synthetic glass catalog (two Sellmeier glasses: BK7's and F2's coefficients)
+# and a prescription with a cemented doublet (four refracting surfaces in a
+# row: one run of kernel 1), a stop, an even asphere singlet and the image plane
+ZMX_AGF = """NM CROWN 2 0 1.5168 64.17 0
+CD 1.03961212 0.00600069867 0.231792344 0.0200179144 1.01046945 103.560653
+LD 0.3 2.5
+NM FLINT 2 0 1.62004 36.37 0
+CD 1.34533359 0.00997743871 0.209073176 0.0470450767 0.937357162 111.886764
+LD 0.32 2.5
+"""
+ZMX_TEXT = """MODE SEQ
+NAME doublet stop asphere
+UNIT MM X W X Y
+SURF 0
+  TYPE STANDARD
+  CURV 0.0
+  DISZ INFINITY
+SURF 1
+  TYPE STANDARD
+  CURV 0.05
+  DIAM 5
+  GLAS CROWN 0 0 1.5168 64.17 0 0 0 0
+  DISZ 3.0
+SURF 2
+  TYPE STANDARD
+  CURV -0.06
+  DIAM 5
+  GLAS FLINT 0 0 1.62004 36.37 0 0 0 0
+  DISZ 1.5
+SURF 3
+  TYPE STANDARD
+  CURV -0.01
+  DIAM 5
+  DISZ 2.0
+SURF 4
+  TYPE STANDARD
+  CURV 0.0
+  DIAM 2
+  STOP
+  DISZ 2.0
+SURF 5
+  TYPE EVENASPH
+  CURV 0.04
+  DIAM 5
+  PARM 1 0.0
+  PARM 2 1e-5
+  GLAS ___BLANK 0 0 1.5168 64.17 0 0 0 0
+  DISZ 2.5
+SURF 6
+  TYPE STANDARD
+  CURV -0.04
+  CONI -1.0
+  DIAM 5
+  DISZ 20.0
+SURF 7
+  TYPE STANDARD
+  CURV 0.0
+  DIAM 6
+  DISZ 0.0
+"""
+
+
+def zmx_scene(ot, G):
+    RT = ot.Raytracer(outline=[-10, 10, -10, 10, -10, 60], no_pol=True)
+    RT.add(ot.RaySource(ot.CircularSurface(r=2.0), pos=[0, 0, -5], divergence="Lambertian",
+                        div_angle=3, spectrum=ot.presets.light_spectrum.d65))
+    RT.add(G)
+    return RT
+
+
+def zmx_by_hand(ot, cat):
+    """The prescription of ZMX_TEXT built with the port's classes, as the
+    loader assembles it: the cemented lenses share their interface, the
+    second starts 1e-7 mm behind it, and the first keeps its own glass
+    behind its back surface (the refraction into the second glass happens
+    at the second lens's front); the stop is a ring out to the group's half
+    span."""
+    G = ot.Group()
+    one = ot.RefractionIndex("Constant", n=1)
+    G.add(ot.Lens(ot.SphericalSurface(r=5, R=1 / 0.05), ot.SphericalSurface(r=5, R=1 / -0.06),
+                  n=cat["CROWN"], pos=[0, 0, 0], d1=0, d2=3.0, n2=cat["CROWN"]))
+    z = 3.0 + 1e-7
+    G.add(ot.Lens(ot.SphericalSurface(r=5, R=1 / -0.06), ot.SphericalSurface(r=5, R=1 / -0.01),
+                  n=cat["FLINT"], pos=[0, 0, z], d1=0, d2=1.5, n2=one))
+    z += 1.5 + 2.0
+    G.add(ot.Aperture(ot.RingSurface(ri=2.0, r=5.0), pos=[0, 0, z]))
+    z += 2.0
+    G.add(ot.Lens(ot.AsphericSurface(r=5, R=1 / 0.04, k=0.0, coeff=[0.0, 1e-5] + [0.0] * 8),
+                  ot.ConicSurface(r=5, R=1 / -0.04, k=-1.0), n=ot.RefractionIndex("Abbe", n=1.5168, V=64.17),
+                  pos=[0, 0, z], d1=0, d2=2.5, n2=one))
+    z += 2.5 + 20.0
+    G.add(ot.Detector(ot.RectangularSurface(dim=[12, 12]), pos=[0, 0, z]))
+    return G
+
+
+def zmx_phase(ot, smi, n=N_RAYS):
+    """load_agf + load_zmx of synthetic files, a trace of 10⁶ rays through
+    the loaded group (kernel 1 on the doublet's run of 4), its sections
+    against those of the same prescription built by hand on the same rays,
+    and the card against the CPU on 10⁵ rays."""
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.tracer.trace_core import trace_bundle
+    with tempfile.TemporaryDirectory() as tmp:
+        agf, zmx = os.path.join(tmp, "cat.agf"), os.path.join(tmp, "lens.zmx")
+        with open(agf, "w") as f:
+            f.write(ZMX_AGF)
+        with open(zmx, "w", encoding="utf-16") as f:
+            f.write(ZMX_TEXT)
+        t0 = time.perf_counter()
+        cat = ot.load_agf(agf)
+        G = ot.load_zmx(zmx, n_dict=cat)
+        t_load = time.perf_counter() - t0
+    assert sorted(cat) == ["CROWN", "FLINT"]
+    assert len(G.lenses) == 3 and len(G.apertures) == 1 and len(G.detectors) == 1
+    RT = zmx_scene(ot, G)
+    runs = run_partition(ot, RT)
+    assert runs == [4], runs
+    RT.trace(20000)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    RT.trace(n)
+    t_trace = time.perf_counter() - t0
+    assert conic_run.launches == 1 and conic_run.variant_launches == {(False, True): 1}
+    launches = {"conic_run[nopol,store]@zmx": conic_run.launches}
+    power = float(RT.rays.w_list[:, -2].sum())
+    assert power > 0.3 * sum(rs.power for rs in RT.ray_sources), power
+
+    # the same prescription by hand, on the same rays: equal sections
+    RTh = zmx_scene(ot, zmx_by_hand(ot, cat))
+    outline = tuple(float(v) for v in RT.outline)
+    secs = []
+    for R_ in (RT, RTh):
+        R_.rays.init(R_.ray_sources, n, len(R_.tracing_surfaces) + 2, R_.no_pol)
+        with torch.no_grad():
+            b = R_._make_source_fn(n)(ot.make_generator(31))
+            secs.append(trace_bundle(R_._build_steps(), R_.n0, outline, *b, True))
+    d_hand = max(float((secs[0]["p"] - secs[1]["p"]).abs().max()),
+                 float((secs[0]["w"] - secs[1]["w"]).abs().max()))
+    assert d_hand == 0.0, d_hand
+    del secs, b
+    calls = capture_run_calls(zmx_scene(ot, G), n, True, seed=32)
+    assert [len(c["steps"]) for c in calls] == [4]
+    rows = {"conic_run[nopol,store]@zmx": check_run_calls(calls, "conic_run[nopol,store]@zmx")}
+    del calls
+    cmp_ = card_vs_cpu(ot, RT, n, seed=33)
+    emit(dict(phase="zmx", gpu=smi, N=n, runs=runs, load_seconds=t_load,
+              trace_seconds_with_host_copy=t_trace, power_before_detector=power,
+              loaded_vs_by_hand_max_abs=d_hand, card_vs_cpu=cmp_, launches=launches))
+    return launches, rows
 
 
 def main():
@@ -1848,6 +2245,14 @@ def main():
     launches.update(eye_launches)
     torch.cuda.empty_cache()
 
+    # ---- 16-17. generic surfaces and the ZEMAX loader -----------------------
+    generic_launches, generic_rows = generic_phase(ot, smi)
+    launches.update(generic_launches)
+    torch.cuda.empty_cache()
+    zmx_launches, zmx_rows = zmx_phase(ot, smi)
+    launches.update(zmx_launches)
+    torch.cuda.empty_cache()
+
     # ---- the kernels of every path --------------------------------------
     rows = dict(main_shapes)
     rows.update({k + "@asphere20": v for k, v in asph.items()})
@@ -1870,6 +2275,8 @@ def main():
     rows["conic_run[nopol,store]@focus"] = main_shapes["conic_run[nopol,store]"]
     rows.update(focus_rows)
     rows.update(eye_rows)
+    rows.update(generic_rows)
+    rows.update(zmx_rows)
     sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
                "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),
                "conic_step": ("conic_step.cu", "optrace_tpu/ops/pallas_trace.py:152")}

@@ -9,13 +9,16 @@ images and spectra, the batched renders ``Raytracer.iterative_render``
 and ``render_huge`` with checkpointing, differentiable design
 (``tracer/diff.py``: images as functions of the surface parameters), the
 focus search, paraxial matrix analysis (``TMA``) and PSF convolution
-(``convolve``). The hot loops are
+(``convolve``), function and data surfaces traced by a numeric hit solve,
+and the ZEMAX/AGF loaders (``load_zmx``, ``load_agf``). The hot loops are
 hand-written CUDA kernels (``ops/cuda_run.py``, ``ops/cuda_binning.py``,
 and the single-step probe ``ops/cuda_trace.py``) with a plain PyTorch
 version beside each.
 
 Every entry point takes ``device=None``, which means the CUDA device; the
-CPU is used only when ``device="cpu"`` is passed.
+CPU is used only when ``device="cpu"`` is passed. The matplotlib plots live
+in ``optrace_tpu_torch.plots``, which this package does not import: import
+it where matplotlib is installed.
 """
 
 from .utils import global_options, OptraceWarning, warning, BaseClass  # noqa: F401
@@ -27,6 +30,8 @@ from .spectrum import Spectrum, LightSpectrum, TransmissionSpectrum, RefractionI
 from .geometry import (Surface, CircularSurface, RingSurface, ConicSurface,  # noqa: F401
                        SphericalSurface, RectangularSurface, AsphericSurface,
                        TiltedSurface, SlitSurface,
+                       FunctionSurface1D, FunctionSurface2D,
+                       DataSurface1D, DataSurface2D,
                        Point, Line, Element, Lens, IdealLens, Filter, Aperture,
                        Detector, RaySource, Group, PointMarker, LineMarker,
                        Volume, BoxVolume, SphereVolume, CylinderVolume)
@@ -34,6 +39,7 @@ from .image import BaseImage, ScalarImage, GrayscaleImage, RGBImage, RenderImage
 from .tracer import Raytracer, RayStorage  # noqa: F401
 from .analysis import TMA, convolve  # noqa: F401
 from .parallel import make_fused_render, make_fused_render_multi, RenderCheckpoint  # noqa: F401
+from .io import load_agf, load_zmx  # noqa: F401
 from . import presets  # noqa: F401
 
-__version__ = "0.1.0"
+from .metadata import version, __version__  # noqa: F401

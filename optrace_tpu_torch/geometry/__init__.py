@@ -3,7 +3,9 @@
 
 from .surface import (Surface, CircularSurface, RingSurface, ConicSurface,  # noqa: F401
                       SphericalSurface, RectangularSurface, AsphericSurface,
-                      TiltedSurface, SlitSurface)
+                      TiltedSurface, SlitSurface,
+                      FunctionSurface1D, FunctionSurface2D,
+                      DataSurface1D, DataSurface2D)
 from .point import Point  # noqa: F401
 from .line import Line  # noqa: F401
 from .element import Element  # noqa: F401

@@ -1,8 +1,11 @@
 """Detector element: non-interacting surface for image/spectrum rendering
 (counterpart of ``optrace_tpu/geometry/detector.py``)."""
 
+from typing import Any
+
 from .element import Element
-from .surface import Surface
+from .surface import (Surface, DataSurface1D, DataSurface2D,
+                      FunctionSurface1D, FunctionSurface2D)
 
 
 class Detector(Element):
@@ -14,3 +17,8 @@ class Detector(Element):
         super().__init__(surface, pos, **kwargs)
         self._new_lock = True
 
+    def __setattr__(self, key: str, val: Any) -> None:
+        if key == "front" and isinstance(val, (DataSurface2D, DataSurface1D,
+                                               FunctionSurface1D, FunctionSurface2D)):
+            raise RuntimeError("Data/Function surfaces are not supported as Detector surfaces.")
+        super().__setattr__(key, val)

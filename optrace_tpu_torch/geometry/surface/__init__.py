@@ -7,3 +7,5 @@ from .rectangular_surface import RectangularSurface  # noqa: F401
 from .aspheric_surface import AsphericSurface  # noqa: F401
 from .tilted_surface import TiltedSurface  # noqa: F401
 from .slit_surface import SlitSurface  # noqa: F401
+from .function_surface import FunctionSurface1D, FunctionSurface2D  # noqa: F401
+from .data_surface import DataSurface1D, DataSurface2D  # noqa: F401

@@ -139,12 +139,9 @@ class Surface(BaseClass):
         return n
 
     def _normals_rel(self, x, y):
-        """Tensor normals in relative coords. Only flat surfaces have a
-        default; curved subclasses bring their analytic normal."""
-        if self.is_flat():
-            return geom.normal_flat(x, y)
-        raise NotImplementedError("numeric normals arrive with the generic-surface slice "
-                                  "(ROADMAP: generic surfaces)")
+        """Tensor normals in relative coords; default: the exact normal of
+        ``_sag`` by forward-mode differentiation (``geom.normal_numeric``)."""
+        return geom.normal_numeric(self._sag, x, y)
 
     # ------------------------------------------------------------------
     # hit finding (host API; the trace engine uses the compiled kernels)

@@ -12,11 +12,16 @@ trip. They are always read from ``params`` (:func:`with_params` for a new
 parameter dict, :func:`host_values` for one that was swapped in by
 ``_replace``), so every route of the trace sees the same surfaces.
 
-Ported surface kinds: the planar shapes (``rect``, ``slit``, ``ring``,
-``circle``), ``conic`` (spheres included), ``asphere`` (even asphere) and
-``tilted`` (tilted plane). A surface class that is not ported (function and
-data surfaces) cannot be constructed, so nothing is ever substituted
-silently.
+Surface kinds: the planar shapes (``rect``, ``slit``, ``ring``, ``circle``,
+and ``flat`` for a function or data surface without sag), ``conic``
+(spheres included), ``asphere`` (even asphere), ``tilted`` (tilted plane)
+and ``generic`` (function and data surfaces: the bracketed numeric solve over
+the surface object's own sag, normals and mask). The generic kind's closures
+hold the surface object, so it has no plain description:
+:func:`surface_fns` builds every kind but that one, and a generic step comes
+from :func:`compile_surface` only. Its parameters carry the position, the
+radius and the extent, which the frame chain and a design render move; the
+user function or the spline stays in the closure.
 """
 
 from typing import Callable, NamedTuple
@@ -116,6 +121,7 @@ def _tilt_normal_fn(params, x, y):
 
 
 _KIND_FNS = {
+    "flat": (_flat_hit_fn, _flat_normal_fn, _mask_circle_fn, True),
     "slit": (_flat_hit_fn, _flat_normal_fn, _mask_slit_fn, True),
     "rect": (_flat_hit_fn, _flat_normal_fn, _mask_rect_fn, True),
     "ring": (_flat_hit_fn, _flat_normal_fn, _mask_ring_fn, True),
@@ -132,12 +138,38 @@ def surface_fns(kind: str, params_np: dict, device, dtype=torch.float32) -> Surf
     numbers."""
     if kind not in _KIND_FNS:
         raise NotImplementedError(
-            f"surface kind '{kind}' is not ported yet (ROADMAP: generic surfaces)")
+            f"surface kind '{kind}' has no plain description: "
+            + ("a generic surface comes from compile_surface" if kind == "generic"
+               else "unknown kind"))
+    hit_fn, normal_fn, mask_fn, is_flat = _KIND_FNS[kind]
+    return _make_fns(params_np, device, dtype, hit_fn, normal_fn, mask_fn, kind, is_flat)
+
+
+def _make_fns(params_np, device, dtype, hit_fn, normal_fn, mask_fn, kind, is_flat):
     npdt = _NP_DTYPES[dtype]
     host = {k: np.asarray(v, dtype=npdt) for k, v in params_np.items()}
     params = {k: torch.tensor(v, device=device) for k, v in host.items()}
-    hit_fn, normal_fn, mask_fn, is_flat = _KIND_FNS[kind]
     return SurfaceFns(params, hit_fn, normal_fn, mask_fn, kind, is_flat, host, params)
+
+
+def _generic_fns(surf: Surface, params_np: dict, device, dtype) -> SurfaceFns:
+    """The ``generic`` kind of a function or data surface: the bracketed
+    numeric solve (``geom.hit_newton``) over the object's tensor sag, its
+    normals (a ``deriv_func``, the spline's derivatives or
+    ``geom.normal_numeric``) and its mask with the user's ``mask_func``."""
+    user_mask = getattr(surf, "mask_func", None) is not None
+
+    def gen_hit(params, o, s):
+        return geom.hit_newton(surf._sag, o, s, params["z_min_rel"], params["z_max_rel"])
+
+    def gen_normal(params, x, y):
+        return surf._normals_rel(x, y)
+
+    def gen_mask(params, x, y):
+        m = geom.mask_circle(x, y, params["r"])
+        return m & surf._mask_rel(x, y) if user_mask else m
+
+    return _make_fns(params_np, device, dtype, gen_hit, gen_normal, gen_mask, "generic", False)
 
 
 def read_host(params: dict) -> dict:
@@ -192,7 +224,12 @@ def compile_surface(surf: Surface, device, dtype=torch.float32) -> SurfaceFns:
         return surface_fns("tilted", dict(base, r=surf.r, normal=surf.normal), device, dtype)
     if isinstance(surf, CircularSurface):
         return surface_fns("circle", dict(base, r=surf.r), device, dtype)
-    raise NotImplementedError(f"surface type {type(surf).__name__} is not ported yet")
+    if not isinstance(surf, Surface):
+        raise TypeError(f"{type(surf).__name__} is not a surface")
+    # function and data surfaces; without sag they are flat discs
+    if surf.is_flat():
+        return surface_fns("flat", dict(base, r=surf.r), device, dtype)
+    return _generic_fns(surf, dict(base, r=surf.r), device, dtype)
 
 
 def steps_from_numpy(spec: list, device, dtype=torch.float32) -> list:

@@ -8,7 +8,12 @@ jit-compiled code.
 from .global_options import global_options
 
 try:
-    from tqdm import tqdm as _tqdm
+    from tqdm import tqdm as _tqdm_base
+
+    class _tqdm(_tqdm_base):
+        # no monitor thread: tqdm starts one with the first bar and keeps it
+        # alive for the rest of the process; these bars are short and need none
+        monitor_interval = 0
 except ImportError:          # pragma: no cover - tqdm is baked into the image
     _tqdm = None
 

@@ -22,6 +22,12 @@ import optrace_tpu_torch as otp
 from optrace_tpu_torch.tracer import trace_core as ttc
 from optrace_tpu_torch.tracer.scene_compile import steps_from_numpy
 
+# one intra-op thread for the port's tests: pytest-xdist runs a worker for
+# most cores, and a pool of a thread per core in every worker spins against
+# the others (a case that takes 0.8 s alone took 55 s so). Every worker
+# imports this module while it collects the tests.
+torch.set_num_threads(1)
+
 # tolerances of the JAX package's own kernel-vs-scan test
 # (tests/test_pallas_run.py): positions rtol 5e-6 / atol 2e-5 mm, weights
 # atol 1e-9 (+ rtol 2e-6 for the Fresnel products)
@@ -222,3 +228,91 @@ def assert_sections_agree(out_j, out_t, N, no_pol=True):
     d_infos = np.abs(out_t["infos"].numpy().astype(int) - out_j["infos"].astype(int)).sum()
     assert d_infos <= 2 * n_flip, f"INFOS differ by {d_infos} with {n_flip} flipped rays"
     return n_flip
+
+
+# ----------------------------------------------------------------------
+# scenes with function and data surfaces: their closures have no plain
+# description, so each package builds the scene from its own classes (a
+# user function takes jnp on one side and torch on the other) and the same
+# bundle is injected into both traces
+
+def sphere_sag(r2, R):
+    """Sag of a sphere of radius R at squared radius r2 (host f64)."""
+    rho = 1.0 / R
+    return rho * r2 / (1.0 + np.sqrt(np.clip(1.0 - rho * rho * r2, 0.0, None)))
+
+
+def data_sphere(pkg, r, R, n=201, astig=0.0):
+    """A DataSurface2D of ``pkg`` sampled from a sphere (plus ``astig``·x·y)
+    on an n × n grid over [−r, r]²."""
+    xy = np.linspace(-r, r, n)
+    X, Y = np.meshgrid(xy, xy)
+    Z = sphere_sag(X ** 2 + Y ** 2, R) + astig * X * Y
+    with pkg.global_options.no_warnings():
+        return pkg.DataSurface2D(r=r, data=Z.T)
+
+
+def generic_scene(name, pkg, lib, no_pol=True):
+    """A scene with generic surfaces, built from the public classes of
+    ``pkg`` (``optrace_tpu`` with ``lib = jnp`` or ``optrace_tpu_torch``
+    with ``lib = torch``):
+
+    - ``cosine_lens``: the lens of examples/cosine_surfaces.py, two
+      FunctionSurface2D with crossed cosine modulation (its z bounds, as
+      the example gives them, leave part of each face ill-conditioned);
+    - ``data_lens``: a DataSurface2D front (sphere R = 20 with a saddle)
+      and a spherical back;
+    - ``function_lens``: the same front as a FunctionSurface2D without a
+      derivative function (numeric normals) and the same back;
+    - ``data_double_gauss``: the double Gauss with its first surface a
+      DataSurface2D sampled from the same sphere; runs on both sides of the
+      generic step.
+    """
+    kw = {"device": "cpu"} if pkg is otp else {}
+    with pkg.global_options.no_warnings():
+        if name == "data_double_gauss":
+            from importlib import import_module
+            geo = import_module(pkg.__name__ + ".presets.geometry")
+            RT = pkg.Raytracer(outline=[-150, 150, -150, 150, -50001, 180], no_pol=no_pol, **kw)
+            RT.add(pkg.RaySource(pkg.Point(), divergence="Isotropic", orientation="Converging",
+                                 conv_pos=[0, 0, 0], div_angle=0.03, pos=[0, 0, -50000],
+                                 spectrum=pkg.LightSpectrum("Constant")))
+            G = geo.double_gauss()
+            L0 = G.lenses[0]
+            L = pkg.Lens(data_sphere(pkg, 38.0, 78.36), pkg.SphericalSurface(r=38.0, R=469.5),
+                         n=L0.n, pos=[0, 0, 0], d1=0, d2=9.8837)
+            G.remove(L0)
+            G.add(L)
+            RT.add(G)
+            return RT
+        RT = pkg.Raytracer(outline=[-5, 5, -5, 5, -10, 60], no_pol=no_pol, **kw)
+        RT.add(pkg.RaySource(pkg.CircularSurface(r=2.5), divergence="None",
+                             spectrum=pkg.LightSpectrum("Monochromatic", wl=550), pos=[0, 0, -5]))
+        if name == "cosine_lens":
+            front = pkg.FunctionSurface2D(r=3, func=lambda x, y: 0.05 * lib.cos(4 * np.pi * x),
+                                          z_min=-0.05, z_max=0.05)
+            back = pkg.FunctionSurface2D(r=3, func=lambda x, y: 0.05 * lib.cos(4 * np.pi * y),
+                                         z_min=-0.05, z_max=0.05)
+            RT.add(pkg.Lens(front, back, n=pkg.presets.refraction_index.PMMA, pos=[0, 0, 0], d=0.5))
+        else:
+            if name == "data_lens":
+                front = data_sphere(pkg, 3.0, 20.0, astig=0.004)
+            else:
+                front = pkg.FunctionSurface2D(
+                    r=3, func=lambda x, y: (x * x + y * y) / (20.0 + lib.sqrt(400.0 - x * x - y * y))
+                    + 0.004 * x * y)
+            RT.add(pkg.Lens(front, pkg.SphericalSurface(r=3, R=-25), n=pkg.presets.refraction_index.BK7,
+                            pos=[0, 0, 0], d=1.0))
+        RT.add(pkg.Detector(pkg.RectangularSurface(dim=[8, 8]), pos=[0, 0, 40]))
+    return RT
+
+
+def torch_trace_scene(RT_t, bundle, no_pol, store_sections=True):
+    """The port's trace_bundle over the port's own scene (its
+    ``_build_steps``) on the bundle, on the CPU."""
+    steps = RT_t._build_steps()
+    p, s, pols, w, wl = (torch.from_numpy(np.array(a)) for a in bundle)
+    with torch.no_grad():
+        out = ttc.trace_bundle(steps, RT_t.n0, tuple(float(v) for v in RT_t.outline),
+                               p, s, pols, w, wl, no_pol, store_sections=store_sections)
+    return out, steps

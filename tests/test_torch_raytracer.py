@@ -91,7 +91,9 @@ def test_spot_on_the_detector(traced):
     """Detector hits from the stored sections of both packages: power,
     centroid and RMS radius agree within 4 σ."""
     RTj, RTt = traced
-    phj, wj, _, _, _, _, _ = RTj._hit_detector("test", 0)
+    with ot.global_options.no_progress_bar():
+        phj, wj, _, _, _, bar, _ = RTj._hit_detector("test", 0)
+        bar.finish()
     dsurf = RTt.detectors[0].surface
     sfns = compile_surface(dsurf, "cpu", torch.float64)
     mask = build_segment_mask(RTt._section_z_bounds(), float(dsurf.z_min), float(dsurf.z_max))
