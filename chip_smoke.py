@@ -22,8 +22,13 @@ with all four methods, convolves images with a PSF preset and with its
 detector image, traces the Arizona eye, traces the double Gauss with a
 data-surface front and the cosine-surface lens of examples/cosine_surfaces.py
 (the generic step unrolled between runs; the card against the CPU on 10⁵
-rays), loads a synthetic ZEMAX prescription and catalog and traces it, and
-checks that every path went through its kernels (launch counters). Every
+rays), loads a synthetic ZEMAX prescription and catalog and traces it,
+drives ``render_huge(mesh=...)`` over an NCCL process group of one rank
+(against the unsharded render, interrupted and resumed), drives the
+``TraceGUI``'s actions on the double Gauss at 10⁶ rays (against the
+raytracer called directly; matplotlib under Agg where it is installed, else
+a stand-in that draws nothing), and checks that every path went through its
+kernels (launch counters). Every
 phase prints one JSON line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure exits with a non-zero code. Without a CUDA device the script
@@ -99,6 +104,8 @@ TOL_CONVOLVE = 1e-6             # card against CPU, both f64, on the [0, 1] sRGB
 # the end of the free flight to the outline), weights rtol 2e-6 / atol 1e-9,
 # and at most 4 rays per 20 000 whose hit/miss history differs
 GENERIC_SUBSET = 10 ** 5
+GUI_COMMAND_RAYS = 200000       # the GUI's ray count set by its command window
+GUI_IMAGE_PIXELS = 315          # TraceGUI.image_pixels: the side of the image the GUI shows
 SEC_P_RTOL, SEC_P_ATOL, SEC_P_ATOL_THROW = 5e-6, 2e-5, 2e-4
 SEC_W_RTOL, SEC_W_ATOL = 2e-6, 1e-9
 SEC_FLIPS_PER_20K = 4
@@ -1418,6 +1425,288 @@ def zmx_phase(ot, smi, n=N_RAYS):
     return launches, rows
 
 
+# ----------------------------------------------------------------------
+# the sharded render and the GUI: each phase drives its path with the
+# counters set to 0 just before and returns its launches (and rows)
+
+class AllReduceCounter:
+    """Counts the calls to ``torch.distributed.all_reduce`` while the
+    ``with`` block runs."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.module, self.calls, self.real = dist, 0, dist.all_reduce
+
+        def counter(*args, **kw):
+            self.calls += 1
+            return self.real(*args, **kw)
+        dist.all_reduce = counter
+        return self
+
+    def __exit__(self, *exc):
+        self.module.all_reduce = self.real
+
+
+def sharded_phase(ot, smi, n=N_ITERATIVE, batch=N_RAYS):
+    """``render_huge(mesh=...)`` of the huge phase's scene and size over an
+    NCCL process group of one rank (this process, a ``file://`` rendezvous
+    in a temporary directory), against the unsharded ``render_huge`` of the
+    same seeds (rank 0 draws the unsharded stream); then interrupted and
+    resumed under the mesh. A process group that does not come up fails the
+    phase: there is no fallback to gloo."""
+    import datetime
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
+    from optrace_tpu_torch.parallel.checkpoint import RenderCheckpoint
+
+    torch.cuda.set_device(0)
+    pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(pg_dir, "rendezvous"),
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120),
+                            device_id=torch.device("cuda", 0))
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = ot.default_mesh()
+        axis = ot.global_options.mesh_axis_name
+        assert mesh.device_type == ot.resolve_device().type and mesh.mesh_dim_names == (axis,)
+        assert mesh.size() == 1
+        warm = torch.ones(1, device=ot.resolve_device())
+        dist.all_reduce(warm)               # NCCL builds its communicator at the first collective
+        torch.cuda.synchronize()
+        t_group = time.perf_counter() - t0
+        n_b = n // batch
+
+        def leg(mesh_or_none):
+            """One render_huge of a fresh scene and its host-clock seconds."""
+            t0 = time.perf_counter()
+            img = double_gauss_scene(ot, True).render_huge(n, batch_size=batch, mesh=mesh_or_none)
+            torch.cuda.synchronize()
+            return img, time.perf_counter() - t0
+
+        # legs sharded, unsharded, unsharded, sharded: the host's spread
+        # between calls is as large as the difference sought
+        reset_launch_counts()
+        with AllReduceCounter() as ar:
+            sharded, t_s1 = leg(mesh)
+        assert conic_run.launches == 2 * n_b and conic_run.variant_launches == {(False, False): 2 * n_b}
+        assert bin_xyzw_cuda.launches == n_b and ar.calls == n_b, (bin_xyzw_cuda.launches, ar.calls)
+        launches = {"conic_run[nopol,nostore]@sharded": conic_run.launches,
+                    "bin_xyzw@sharded": bin_xyzw_cuda.launches}
+        plain, t_u1 = leg(None)
+        t_u2 = leg(None)[1]
+        t_s2 = leg(mesh)[1]
+        t_sharded, t_plain = (t_s1 + t_s2) / 2, (t_u1 + t_u2) / 2
+        d_plain = float(np.abs(sharded.data - plain.data).max())
+        assert np.isfinite(sharded.data).all() and sharded.shape == plain.shape
+        assert d_plain <= TOL_BIN * plain.data.max(), (d_plain, plain.data.max())
+        assert abs(sharded.power() - plain.power()) <= 1e-6 * plain.power()
+
+        class Interrupted(Exception):
+            pass
+
+        ck_path = os.path.join(pg_dir, "sharded.ckpt.npz")
+        kw = dict(batch_size=batch, mesh=mesh, checkpoint_path=ck_path, checkpoint_every=1)
+        real_save = RenderCheckpoint.save
+
+        def save_then_stop(self):
+            real_save(self)
+            if self.done == 2:
+                raise Interrupted
+        RenderCheckpoint.save = save_then_stop
+        try:
+            double_gauss_scene(ot, True).render_huge(n, **kw)
+            raise AssertionError("render_huge(mesh=...) was not interrupted")
+        except Interrupted:
+            pass
+        finally:
+            RenderCheckpoint.save = real_save
+        assert RenderCheckpoint(ck_path, n_b).done == 2
+        reset_launch_counts()
+        with AllReduceCounter() as ar_r:
+            t0 = time.perf_counter()
+            resumed = double_gauss_scene(ot, True).render_huge(n, **kw)
+            torch.cuda.synchronize()
+            t_resume = time.perf_counter() - t0
+        assert conic_run.launches == 2 * (n_b - 2) and bin_xyzw_cuda.launches == n_b - 2
+        assert ar_r.calls == n_b - 2 and RenderCheckpoint(ck_path, n_b).done == n_b
+        d_resume = float(np.abs(resumed.data - sharded.data).max())
+        assert d_resume <= TOL_BIN * sharded.data.max(), (d_resume, sharded.data.max())
+        emit(dict(phase="sharded", gpu=smi, scene="double_gauss", backend="nccl", world_size=1,
+                  mesh_axis=axis, N=n, batch=batch, seconds_group_and_first_collective=t_group,
+                  legs="sharded, unsharded, unsharded, sharded",
+                  seconds_sharded_legs=[t_s1, t_s2], seconds_unsharded_legs=[t_u1, t_u2],
+                  seconds_sharded=t_sharded, rays_per_s_sharded=n / t_sharded,
+                  seconds_unsharded=t_plain, rays_per_s_unsharded=n / t_plain,
+                  seconds_resumed_two_batches_with_saves=t_resume,
+                  launches=dict(conic_run=2 * n_b, bin_xyzw=n_b, all_reduce=n_b),
+                  sharded_vs_unsharded_max_abs=d_plain, resumed_vs_uninterrupted_max_abs=d_resume,
+                  image_max=float(plain.data.max()), tolerance=TOL_BIN * float(plain.data.max()),
+                  power=sharded.power()))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+    return launches
+
+
+class _Inert:
+    """Answers every attribute, call, index, iteration and arithmetic
+    operation with itself: a drawing call that draws nothing."""
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return self
+
+    def __call__(self, *args, **kwargs):
+        return self
+
+    def __getitem__(self, key):
+        return self
+
+    def __iter__(self):             # ``line, = ax.plot(...)``
+        return iter((self,))
+
+    def _same(self, *args):
+        return self
+
+    __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _same
+    __truediv__ = __rtruediv__ = __neg__ = _same
+
+
+def drawing_backend():
+    """The GUI draws with matplotlib. Where matplotlib is installed it runs
+    under Agg. Where it is not (the H100 machine that this script was
+    written for has none), the modules ``matplotlib*`` and ``mpl_toolkits*``
+    are a stand-in whose every drawing call does nothing, so that the GUI's
+    own code and its device work run and are timed without the
+    rasterization. Returns (a description, a function that removes the
+    stand-in)."""
+    import importlib.abc
+    import importlib.machinery
+    import importlib.util
+    import types
+    if importlib.util.find_spec("matplotlib") is not None:
+        import matplotlib
+        matplotlib.use("Agg")
+        return f"matplotlib {matplotlib.__version__} (Agg)", lambda: None
+
+    class InertModule(types.ModuleType):
+        def __getattr__(self, name):
+            if name.startswith("__"):
+                raise AttributeError(name)
+            return _Inert()
+
+    class InertFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("matplotlib", "mpl_toolkits"):
+                return importlib.machinery.ModuleSpec(name, self, is_package=True)
+            return None
+
+        def create_module(self, spec):
+            mod = InertModule(spec.name)
+            mod.__path__ = []
+            return mod
+
+        def exec_module(self, module):
+            pass
+
+    finder = InertFinder()
+    sys.meta_path.insert(0, finder)
+
+    def undo():
+        sys.meta_path.remove(finder)
+        for name in list(sys.modules):
+            if name.split(".")[0] in ("matplotlib", "mpl_toolkits") \
+                    or name.startswith(("optrace_tpu_torch.gui", "optrace_tpu_torch.plots")):
+                del sys.modules[name]
+    return "stand-in: matplotlib is not installed on this machine; nothing is drawn", undo
+
+
+def gui_phase(ot, smi, n=N_RAYS, n_command=GUI_COMMAND_RAYS):
+    """``TraceGUI`` on the double Gauss (with polarization, as the GUI traces
+    by default) at 10⁶ rays on the card: each action timed by the host clock
+    after a synchronize, the launches of the GUI's own actions counted, its
+    detector image held against ``Raytracer.detector_image`` on the same
+    trace and its focus against ``Raytracer.focus_search`` called directly."""
+    import numpy as np
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
+    from optrace_tpu_torch.image import render_image as render_image_mod
+
+    drawing, undo = drawing_backend()
+    try:
+        from optrace_tpu_torch.gui import TraceGUI
+        RT = double_gauss_scene(ot, no_pol=False)
+        RT.trace(20000)                         # warm-up at a small size
+        gui = TraceGUI(RT, ray_count=n)
+        assert gui.image_pixels == GUI_IMAGE_PIXELS and gui.focus_search_method == "RMS Spot Size"
+        seconds, own = {}, {"conic_run": 0, "bin_xyzw": 0}
+
+        def action(name, fn):
+            """One action of the GUI: its host-clock seconds, and the kernel
+            launches it made added to the GUI's own."""
+            torch.cuda.synchronize()
+            c0, b0 = conic_run.launches, bin_xyzw_cuda.launches
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            own["conic_run"] += conic_run.launches - c0
+            own["bin_xyzw"] += bin_xyzw_cuda.launches - b0
+            return out
+
+        reset_launch_counts()
+        action("init_scene", gui.init_scene)
+        assert conic_run.launches == 2 and conic_run.variant_launches == {(True, True): 2}
+        assert RT.rays.N == n and gui.ray_selection.sum() == gui.rays_visible
+        if drawing.startswith("matplotlib"):
+            shot = action("screenshot", gui.screenshot)
+            assert shot.ndim == 3 and shot.shape[2] == 3
+        with BinRecorder(render_image_mod) as rec:
+            img = action("detector_image", gui.detector_image)
+        assert own["bin_xyzw"] == 1 and len(rec.calls) == 1
+        ref = RT.detector_image(projection_method=gui.projection_method)     # the same trace
+        d_img = float(np.abs(img.data - ref.data).max())
+        assert img.shape == ref.shape and np.array_equal(img.extent, ref.extent)
+        assert d_img <= TOL_BIN * ref.data.max(), (d_img, ref.data.max())
+        assert min(img.get(gui.image_mode, gui.image_pixels).shape[:2]) == GUI_IMAGE_PIXELS
+        src = action("source_image", gui.source_image)
+        assert own["bin_xyzw"] == 2 and src.power() > 0
+        det = RT.detectors[0]
+        z0 = float(det.pos[2])
+        res_direct, _ = RT.focus_search("RMS Spot Size", z_start=z0)
+        action("move_to_focus", gui.move_to_focus)
+        z_focus = float(det.pos[2])
+        assert z_focus == res_direct.x != z0, (z_focus, res_direct.x, z0)
+        txt = action("pick_ray", lambda: gui.pick_ray(n // 2))
+        assert f"Ray {n // 2}" in txt
+        action("run_command_ray_count", lambda: gui.run_command(f"GUI.ray_count = {n_command}"))
+        assert RT.rays.N == n_command and RT.check_if_rays_are_current()
+        assert own["conic_run"] == 4 and own["bin_xyzw"] == 2, own
+        px, py, w, wl, Nx_g, Ny_g, ext_g = rec.calls[0]
+        bin_gui = check_binning(px, py, w, wl, ext_g, "bin_xyzw@gui", Nx=Nx_g, Ny=Ny_g)
+        del px, py, w, wl, rec
+        emit(dict(phase="gui", gpu=smi, scene="double_gauss (polarization)", drawing=drawing,
+                  N=n, N_after_command=n_command, image_pixels=GUI_IMAGE_PIXELS,
+                  seconds_host_clock=seconds,
+                  screenshot="measured" if "screenshot" in seconds else "not measured: nothing is drawn",
+                  launches=own, detector_image_vs_raytracer_max_abs=d_img,
+                  image_max=float(ref.data.max()), tolerance=TOL_BIN * float(ref.data.max()),
+                  focus=dict(z_start=z0, gui=z_focus, focus_search=res_direct.x),
+                  power_detector_image=img.power(), power_source_image=src.power()))
+        gui.close()
+    finally:
+        undo()
+    return ({"conic_run[pol,store]@gui": own["conic_run"], "bin_xyzw@gui": own["bin_xyzw"]},
+            {"bin_xyzw@gui": bin_gui})
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2253,6 +2542,13 @@ def main():
     launches.update(zmx_launches)
     torch.cuda.empty_cache()
 
+    # ---- 18-19. the sharded render and the GUI ------------------------------
+    launches.update(sharded_phase(ot, smi))
+    torch.cuda.empty_cache()
+    gui_launches, gui_rows = gui_phase(ot, smi)
+    launches.update(gui_launches)
+    torch.cuda.empty_cache()
+
     # ---- the kernels of every path --------------------------------------
     rows = dict(main_shapes)
     rows.update({k + "@asphere20": v for k, v in asph.items()})
@@ -2277,6 +2573,10 @@ def main():
     rows.update(eye_rows)
     rows.update(generic_rows)
     rows.update(zmx_rows)
+    rows["conic_run[nopol,nostore]@sharded"] = main_shapes["conic_run[nopol,nostore]"]
+    rows["bin_xyzw@sharded"] = main_shapes["bin_xyzw"]
+    rows["conic_run[pol,store]@gui"] = main_shapes["conic_run[pol,store]"]
+    rows.update(gui_rows)
     sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
                "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),
                "conic_step": ("conic_step.cu", "optrace_tpu/ops/pallas_trace.py:152")}

@@ -38,7 +38,8 @@ from .geometry import (Surface, CircularSurface, RingSurface, ConicSurface,  # n
 from .image import BaseImage, ScalarImage, GrayscaleImage, RGBImage, RenderImage  # noqa: F401
 from .tracer import Raytracer, RayStorage  # noqa: F401
 from .analysis import TMA, convolve  # noqa: F401
-from .parallel import make_fused_render, make_fused_render_multi, RenderCheckpoint  # noqa: F401
+from .parallel import (make_fused_render, make_fused_render_multi, make_sharded_render,  # noqa: F401
+                       default_mesh, RenderCheckpoint)
 from .io import load_agf, load_zmx  # noqa: F401
 from . import presets  # noqa: F401
 

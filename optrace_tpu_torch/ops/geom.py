@@ -122,12 +122,30 @@ def normal_numeric(sag_fn, x, y):
 
     ``sag_fn`` must be a function of tensors made of differentiable torch
     operations: a function that calls numpy or ``.item()`` has no
-    derivative here. Inside an outer forward-mode level
-    (``torch.autograd.forward_ad.dual_level``) PyTorch refuses the nested
-    jvp.
+    derivative here. It must also be elementwise, the sag of each ray
+    depending on that ray's (x, y) alone: the jvp with a tangent of ones,
+    and the gradient of the summed sag below, give the partials only then.
+
+    Inside an active forward-mode level
+    (``torch.autograd.forward_ad.dual_level``) PyTorch refuses a nested
+    ``torch.func.jvp``; there the partials are taken in reverse mode with
+    ``create_graph=True`` (forward over reverse), which carries the outer
+    tangent through the normals.
     """
-    _, dzdx = torch.func.jvp(lambda xx: sag_fn(xx, y), (x,), (torch.ones_like(x),))
-    _, dzdy = torch.func.jvp(lambda yy: sag_fn(x, yy), (y,), (torch.ones_like(y),))
+    if torch.autograd.forward_ad._current_level >= 0:
+        # the partials by the gradient of the summed sag at x + ex, y + ey
+        # (ex = ey = 0): x and y keep their tangents and their graph. The
+        # tangent flows through the backward pass either way; its graph is
+        # kept only where reverse mode is on as well
+        create_graph = torch.is_grad_enabled()
+        with torch.enable_grad():
+            ex = torch.zeros_like(x, requires_grad=True)
+            ey = torch.zeros_like(y, requires_grad=True)
+            dzdx, dzdy = torch.autograd.grad(sag_fn(x + ex, y + ey).sum(), (ex, ey),
+                                             create_graph=create_graph)
+    else:
+        _, dzdx = torch.func.jvp(lambda xx: sag_fn(xx, y), (x,), (torch.ones_like(x),))
+        _, dzdy = torch.func.jvp(lambda yy: sag_fn(x, yy), (y,), (torch.ones_like(y),))
     n = torch.stack([-dzdx, -dzdy, torch.ones_like(x)], dim=-1)
     return n / torch.linalg.norm(n, dim=-1, keepdim=True)
 

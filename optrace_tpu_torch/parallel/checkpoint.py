@@ -5,7 +5,14 @@ periodically saves the accumulated detector tiles plus the batch counter, so
 a render of 10⁸ rays and more survives an interruption and resumes with the
 same remaining batches. Each batch draws from a ``torch.Generator`` seeded
 from (seed, batch index) alone, so the stream of a batch does not depend on
-which batches ran before it.
+which batches ran before it. In the sharded render each rank draws its share
+of a batch from (seed, batch index, rank); rank 0 draws the stream of the
+unsharded batch.
+
+A checkpoint of the sharded render holds the summed tile, which every rank
+has: only rank 0 of the group writes the file, every rank reads it, and all
+ranks wait at a barrier after each save, so no rank runs ahead of a
+checkpoint that is still being written.
 
 The tiles are summed in f64 on the device they arrive on and come to the
 host when the checkpoint is saved or the image is read. On the CPU a
@@ -18,24 +25,33 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _MASK64 = (1 << 64) - 1
 
 
-def batch_seed(seed: int, batch_index: int) -> int:
-    """A fixed integer mix (splitmix64 finalizer) of (seed, batch index) to a
-    63-bit generator seed: neighbouring seeds and indices give unrelated
-    streams, and the result depends on nothing else."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + (int(batch_index) + 1) * 0xBF58476D1CE4E5B9) & _MASK64
+def shard_seed(seed: int, batch_index: int, rank: int) -> int:
+    """A fixed integer mix (splitmix64 finalizer) of (seed, batch index,
+    rank) to a 63-bit generator seed: neighbouring seeds, indices and ranks
+    give unrelated streams, and the result depends on nothing else. Rank 0
+    adds nothing to the mix, so its seed is :func:`batch_seed`."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + (int(batch_index) + 1) * 0xBF58476D1CE4E5B9
+         + int(rank) * 0xD6E8FEB86659FD93) & _MASK64
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) >> 1
 
 
-def batch_generator(seed: int, batch_index: int, device) -> torch.Generator:
-    """The generator of one batch on ``device``, see :func:`batch_seed`."""
+def batch_seed(seed: int, batch_index: int) -> int:
+    """The generator seed of one batch of an unsharded render."""
+    return shard_seed(seed, batch_index, 0)
+
+
+def batch_generator(seed: int, batch_index: int, device, rank: int = 0) -> torch.Generator:
+    """The generator of one batch (of one rank's share of it) on ``device``,
+    see :func:`shard_seed`."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(batch_seed(seed, batch_index))
+    gen.manual_seed(shard_seed(seed, batch_index, rank))
     return gen
 
 
@@ -51,21 +67,27 @@ class RenderCheckpoint:
             if i % 10 == 9:
                 ck.save()
         img = ck.image()
+
+    With ``group`` (a ``torch.distributed`` process group) only its rank 0
+    writes the file, and every save ends at a barrier of the group.
     """
 
-    def __init__(self, path: str = None, total_batches: int = 1, seed: int = 0) -> None:
+    def __init__(self, path: str = None, total_batches: int = 1, seed: int = 0,
+                 group=None) -> None:
         self.path = path
         self.total_batches = int(total_batches)
         self.seed = int(seed)
+        self.group = group
         self._img = None        # f64: a tensor once a tile was added, numpy after load()
         self._done = 0
         if path is not None and os.path.isfile(path):
             self.load()
 
     # ------------------------------------------------------------------
-    def generator(self, batch_index: int, device) -> torch.Generator:
-        """Per-batch generator, independent of completion order."""
-        return batch_generator(self.seed, batch_index, device)
+    def generator(self, batch_index: int, device, rank: int = 0) -> torch.Generator:
+        """Per-batch generator (of one rank's share of the batch),
+        independent of completion order."""
+        return batch_generator(self.seed, batch_index, device, rank)
 
     def remaining(self):
         """Iterator over the batch indices still to run."""
@@ -93,10 +115,13 @@ class RenderCheckpoint:
 
     # ------------------------------------------------------------------
     def save(self) -> None:
-        tmp = self.path + ".tmp.npz"
-        np.savez_compressed(tmp, img=self._host_image(), done=self._done,
-                            total=self.total_batches, seed=self.seed)
-        os.replace(tmp, self.path)
+        if self.group is None or dist.get_rank(self.group) == 0:
+            tmp = self.path + ".tmp.npz"
+            np.savez_compressed(tmp, img=self._host_image(), done=self._done,
+                                total=self.total_batches, seed=self.seed)
+            os.replace(tmp, self.path)
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     def load(self) -> None:
         with np.load(self.path) as d:

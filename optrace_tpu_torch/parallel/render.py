@@ -1,16 +1,24 @@
 """Fused render: source sampling → trace → detector binning, in one pass
-with no stored sections.
+with no stored sections, on one device or sharded over the ranks of a
+``torch.distributed`` device mesh.
 
-Counterpart of ``optrace_tpu/parallel/render.py`` (``_detector_sink``,
-``make_fused_render_multi``, ``make_fused_render``). Detector crossings are
+Counterpart of ``optrace_tpu/parallel/render.py``. Detector crossings are
 consumed *while the trace runs* (a streaming sink in trace_bundle, see
 tracer/detector.segment_update) and sections are never stored, so device
 memory is O(N) per batch regardless of total ray count AND surface count.
 A spherical detector's hits are projected on the device before they are
-binned. The sharded render over several devices arrives with its own slice.
+binned.
+
+The sharded render follows PyTorch's idiom of one process per device
+(``torchrun``): each rank renders its share of a batch from its own
+generator, divides its tile by the number of ranks, and an ``all_reduce``
+sums the tiles, so every rank holds the whole image. This is the JAX
+package's shard_map with a ``psum``, in the same order (divide, then sum).
 """
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..geometry import SphericalSurface
 from ..tracer.scene_compile import compile_surface
@@ -21,6 +29,7 @@ from ..ops import binning
 from ..ops.cuda_binning import bin_xyzw_cuda
 from ..utils.device import resolve_device
 from ..utils.global_options import global_options
+from .checkpoint import batch_generator
 
 
 def _detector_sink(RT, detector_index: int, projection_method, extent,
@@ -138,3 +147,68 @@ def make_fused_render(RT, N_batch: int, detector_index: int = 0,
         return imgs[0]
 
     return render_one, exts[0]
+
+
+def default_mesh(axis_name: str = "rays", device=None) -> DeviceMesh:
+    """1-D device mesh named ``axis_name`` over every rank of the initialized
+    default process group, on the device type of ``device`` (``None`` is the
+    CUDA device and raises without one; ``"cpu"`` for a gloo group).
+
+    Each process drives one device: start the processes with ``torchrun`` or
+    call ``torch.distributed.init_process_group`` in each, and on a GPU call
+    ``torch.cuda.set_device(local_rank)`` before building the raytracer.
+    """
+    device = resolve_device(device)
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError("default_mesh needs an initialized default process group: start the "
+                           "processes with torchrun, or call torch.distributed.init_process_group "
+                           "in each of them first")
+    return DeviceMesh(device.type, torch.arange(dist.get_world_size()), mesh_dim_names=(axis_name,))
+
+
+def make_sharded_render(RT, N_batch: int, mesh: DeviceMesh = None, detector_index: int = 0,
+                        extent=None, Nx: int = 945, Ny: int = 945, axis_name: str = "rays",
+                        projection_method: str = "Equidistant"):
+    """Fused render step sharded over the ``axis_name`` axis of a device mesh.
+
+    Every rank of the axis calls this and then the step, with the same
+    arguments; each traces ``N_batch / ranks`` rays on ``RT.device``.
+    Returns ``(step, extent)``: ``step(batch_index, seed=0)`` renders batch
+    ``batch_index`` of a render seeded by ``seed`` and returns the summed
+    (Ny, Nx, 4) XYZW tile on every rank. A step takes the batch's index, not
+    a ``torch.Generator``: each rank draws from its own generator of (seed,
+    batch index, rank) (``checkpoint.shard_seed``), and rank 0 draws the
+    stream of the unsharded batch, so on one rank the step equals the fused
+    render of ``batch_generator(seed, batch_index)``. The step carries the
+    mesh axis's process ``group`` and this process's ``rank`` in it.
+
+    :param mesh: a ``DeviceMesh`` on the device type of ``RT.device``;
+        ``None`` is :func:`default_mesh` on the CUDA device
+    """
+    if mesh is None:
+        mesh = default_mesh(axis_name)
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed.device_mesh.DeviceMesh, "
+                        f"not {type(mesh).__name__}")
+    if mesh.device_type != RT.device.type:
+        raise ValueError(f"the mesh lies on {mesh.device_type} devices, the raytracer on "
+                         f"{RT.device.type}")
+    if axis_name not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh has no axis {axis_name!r} (its axes: {mesh.mesh_dim_names})")
+    group = mesh.get_group(axis_name)
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if N_batch % world:
+        raise ValueError(f"N_batch={N_batch} must be divisible by the mesh size {world}.")
+
+    render_one, ext = make_fused_render(RT, N_batch // world, detector_index, extent, Nx, Ny,
+                                        projection_method, device=RT.device)
+
+    def step(batch_index: int, seed: int = 0):
+        # each shard samples its rays at full source power; rescale so the
+        # sum over the shards carries the true total power
+        tile = render_one(batch_generator(seed, batch_index, RT.device, rank)) / world
+        dist.all_reduce(tile, op=dist.ReduceOp.SUM, group=group)
+        return tile
+
+    step.group, step.rank = group, rank
+    return step, ext

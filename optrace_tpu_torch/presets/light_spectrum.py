@@ -1,6 +1,5 @@
-"""Light spectrum presets: standard illuminants and line combinations
-(counterpart of ``optrace_tpu/presets/light_spectrum.py``; the sRGB
-primaries arrive with the colour-conversion slice)."""
+"""Light spectrum presets: standard illuminants, the sRGB primaries and line
+combinations (counterpart of ``optrace_tpu/presets/light_spectrum.py``)."""
 
 from . import spectral_lines as Lines
 from ..spectrum.light_spectrum import LightSpectrum
@@ -33,6 +32,19 @@ standard_f: list = [f2, f7, f11]
 standard_led: list = [led_b1, led_b2, led_b3, led_b4, led_b5, led_bh1, led_rgb1, led_v1, led_v2]
 standard: list = [*standard_natural, *standard_f, *standard_led]
 
+# sRGB primaries -------------------------------------------------------
+
+srgb_r = LightSpectrum("Function", func=color.srgb_r_primary, desc="R", long_desc="sRGB R Primary")
+srgb_g = LightSpectrum("Function", func=color.srgb_g_primary, desc="G", long_desc="sRGB G Primary")
+srgb_b = LightSpectrum("Function", func=color.srgb_b_primary, desc="B", long_desc="sRGB B Primary")
+srgb_w = LightSpectrum("Function",
+                       func=lambda wl: color.srgb_r_primary(wl) + color.srgb_g_primary(wl)
+                       + color.srgb_b_primary(wl),
+                       desc="W", long_desc="sRGB White Spectrum")
+
+srgb_r_power_factor, srgb_g_power_factor, srgb_b_power_factor = color.SRGB_PRIMARY_POWER_FACTORS
+srgb: list = [srgb_r, srgb_g, srgb_b, srgb_w]
+
 # spectral line combinations -------------------------------------------
 
 FDC = LightSpectrum("Lines", lines=Lines.FDC, line_vals=[1, 1, 1],
@@ -48,4 +60,4 @@ rgb_lines = LightSpectrum("Lines", lines=Lines.rgb, line_vals=[0.5745000, 0.5985
 
 lines: list = [FDC, FdC, FeC, F_eC_, rgb_lines]
 
-all_presets: list = [*standard, *lines]
+all_presets: list = [*standard, *lines, *srgb]

@@ -10,12 +10,10 @@ device: ``detector_image``, ``detector_spectrum``, ``source_image`` and
 ``source_spectrum`` read them there, search the detector hits in f64 and bin
 them on the same device, and return host objects. ``iterative_render`` and
 ``render_huge`` stream batch after batch through the fused render
-(``parallel/render.py``) and store no sections. ``focus_search`` reduces the
-kept sections to ray lines on the device and sweeps the focus costs there
-(``analysis/focus.py``).
-
-Not ported yet (see ROADMAP.md): ``render_huge`` over several devices
-(``mesh``).
+(``parallel/render.py``) and store no sections; ``render_huge(mesh=...)``
+shards each batch over the ranks of a ``torch.distributed`` device mesh.
+``focus_search`` reduces the kept sections to ray lines on the device and
+sweeps the focus costs there (``analysis/focus.py``).
 """
 
 import warnings
@@ -740,19 +738,22 @@ class Raytracer(Group):
         """Render a detector image from 10⁸ rays and more in O(batch) memory.
 
         Each batch is one source → trace → detector sink → bin pass of the
-        fused render; no ray sections are ever stored. With
-        ``checkpoint_path`` progress is saved every ``checkpoint_every``
-        batches and a later call resumes with the same remaining batches
-        (each batch has its own generator, see ``parallel/checkpoint.py``).
+        fused render; no ray sections are ever stored. With ``mesh`` (a
+        ``torch.distributed`` ``DeviceMesh``, see ``parallel.default_mesh``)
+        every rank calls this with the same arguments, each batch is sharded
+        over the mesh axis ``global_options.mesh_axis_name`` and the tiles
+        are summed by an all-reduce, so every rank returns the image; the
+        progress bar shows on rank 0 only. With ``checkpoint_path`` progress
+        is saved every ``checkpoint_every`` batches (by rank 0 under a mesh)
+        and a later call resumes with the same remaining batches (each batch,
+        and each rank's share of it, has its own generator, see
+        ``parallel/checkpoint.py``).
 
         :param extent: fixed image extent; defaults to the detector
             surface extent (an automatic extent would need a stored trace)
-        :param mesh: rendering over several devices is not ported yet
+        :param batch_size: rays a batch; under a mesh a multiple of its size
         :return: accumulated RenderImage
         """
-        if mesh is not None:
-            raise NotImplementedError("render_huge over several devices (mesh) is not ported yet: "
-                                      "see ROADMAP.md, the sharded render over torch.distributed")
         if not self.detectors:
             raise RuntimeError("Detector(s) Missing.")
         if (N := int(N)) <= 0:
@@ -760,8 +761,8 @@ class Raytracer(Group):
         if self._pretrace_check(min(N, self.ITER_RAYS_STEP)):
             raise RuntimeError("Geometry checks failed. Tracing aborted. Check the warnings.")
 
-        from ..parallel.render import make_fused_render_multi
-        from ..parallel.checkpoint import RenderCheckpoint
+        from ..parallel.render import make_fused_render_multi, make_sharded_render
+        from ..parallel.checkpoint import RenderCheckpoint, batch_generator
 
         batch = int(batch_size) if batch_size else min(N, self.ITER_RAYS_STEP)
         n_batches = max(1, -(-N // batch))
@@ -778,23 +779,36 @@ class Raytracer(Group):
         img.render(limit=limit, _dont_filter=True)   # fix extent, alloc zeros
         Ny, Nx, _ = img._data.shape
 
-        render, _ = make_fused_render_multi(
-            self, batch, [dict(detector_index=detector_index,
-                               extent=tuple(img.extent),
-                               projection_method=projection_method,
-                               Nx=Nx, Ny=Ny)], device=self.device)
+        if mesh is not None:
+            step, _ = make_sharded_render(self, batch, mesh=mesh, detector_index=detector_index,
+                                          extent=tuple(img.extent), Nx=Nx, Ny=Ny,
+                                          axis_name=global_options.mesh_axis_name,
+                                          projection_method=projection_method)
+            group, rank = step.group, step.rank
+        else:
+            render, _ = make_fused_render_multi(
+                self, batch, [dict(detector_index=detector_index,
+                                   extent=tuple(img.extent),
+                                   projection_method=projection_method,
+                                   Nx=Nx, Ny=Ny)], device=self.device)
+            group, rank = None, 0
 
-        ck = RenderCheckpoint(checkpoint_path, n_batches)
-        bar = ProgressBar("Rendering: ", n_batches - ck.done)
+            def step(batch_index, seed):
+                return render(batch_generator(seed, batch_index, self.device))[0][0]
+
+        ck = RenderCheckpoint(checkpoint_path, n_batches, group=group)
+        bar = ProgressBar("Rendering: ", n_batches - ck.done) if rank == 0 else None
         with torch.no_grad():
             for i in ck.remaining():
-                ck.add(render(ck.generator(i, self.device))[0][0])
+                ck.add(step(i, ck.seed))
                 if checkpoint_path and (i % checkpoint_every == checkpoint_every - 1):
                     ck.save()
-                bar.update()
+                if bar is not None:
+                    bar.update()
         if checkpoint_path:
             ck.save()
-        bar.finish()
+        if bar is not None:
+            bar.finish()
 
         img._data += ck.image()
         if limit is not None:

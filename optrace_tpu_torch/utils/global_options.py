@@ -6,7 +6,8 @@ and context managers. The port's own flags are ``cuda_trace`` and
 ``cuda_binning``, which route the trace runs and the detector binning
 through the hand-written CUDA kernels when the tensors lie on a CUDA
 device, and ``cuda_fuse_planar``, which lets a run hold tilted planes and
-aperture absorbers.
+aperture absorbers. ``mesh_axis_name`` names the device-mesh axis over
+which ``Raytracer.render_huge(mesh=...)`` shards its rays.
 """
 
 import contextlib
@@ -28,6 +29,7 @@ class _GlobalOptions:
         self._cuda_binning: bool = True
         self._cuda_trace: bool = True
         self._cuda_fuse_planar: bool = False
+        self._mesh_axis_name: str = "rays"
 
     # ------------------------------------------------------------------
     @property
@@ -156,6 +158,18 @@ class _GlobalOptions:
     def cuda_fuse_planar(self, val: bool) -> None:
         self._check_bool("cuda_fuse_planar", val)
         self._cuda_fuse_planar = val
+
+    @property
+    def mesh_axis_name(self) -> str:
+        """The axis of a ``torch.distributed`` device mesh that the sharded
+        render splits its rays over (``Raytracer.render_huge(mesh=...)``)."""
+        return self._mesh_axis_name
+
+    @mesh_axis_name.setter
+    def mesh_axis_name(self, val: str) -> None:
+        if not isinstance(val, str):
+            raise TypeError("mesh_axis_name must be a string.")
+        self._mesh_axis_name = val
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -139,11 +139,13 @@ def test_xyz_from_spectrum_and_wavelengths(method):
     assert tc.WP_D65_XY == jc.WP_D65_XY and tc.WP_D65_LUV == jc.WP_D65_LUV and tc.SRGB_G_UV == jc.SRGB_G_UV
 
 
-@pytest.mark.parametrize("spec", ["d65", "led", "mono", "lines", "rect"])
+@pytest.mark.parametrize("spec", ["d65", "led", "mono", "lines", "rect", "srgb_r", "srgb_w"])
 def test_light_spectrum_colour_metrics(spec):
     def make(m):
         return {"d65": lambda: m.presets.light_spectrum.d65,
                 "led": lambda: m.presets.light_spectrum.led_b1,
+                "srgb_r": lambda: m.presets.light_spectrum.srgb_r,
+                "srgb_w": lambda: m.presets.light_spectrum.srgb_w,
                 "mono": lambda: m.LightSpectrum("Monochromatic", wl=532.0),
                 "lines": lambda: m.LightSpectrum("Lines", lines=[450.0, 550.0, 650.0], line_vals=[1.0, 2.0, 0.5]),
                 "rect": lambda: m.LightSpectrum("Rectangle", wl0=500.0, wl1=620.0)}[spec]()

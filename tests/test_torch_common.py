@@ -8,6 +8,7 @@ with numpy from a seed. The port runs on the CPU here, where the kernel
 wrappers take their plain PyTorch versions.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -316,3 +317,51 @@ def torch_trace_scene(RT_t, bundle, no_pol, store_sections=True):
         out = ttc.trace_bundle(steps, RT_t.n0, tuple(float(v) for v in RT_t.outline),
                                p, s, pols, w, wl, no_pol, store_sections=store_sections)
     return out, steps
+
+
+def gui_scene(pkg, ray_outline=(-12, 12, -12, 12, -12, 80)):
+    """The scene of tests/test_gui.py (``tracing_geometry``), built from the
+    public classes of ``pkg``: two sources, a lens, an ideal lens, an
+    aperture, a filter, a flat and a spherical detector, a marker and a
+    volume. The port's raytracer lies on the CPU."""
+    kw = {"device": "cpu"} if pkg is otp else {}
+    RT = pkg.Raytracer(outline=list(ray_outline), **kw)
+    RT.add(pkg.RaySource(pkg.CircularSurface(r=1), pos=[0, 0, -10], divergence="Lambertian",
+                         div_angle=3, spectrum=pkg.presets.light_spectrum.d65))
+    RT.add(pkg.RaySource(pkg.Point(), pos=[0, 1, -10], divergence="Isotropic",
+                         div_angle=3, spectrum=pkg.presets.light_spectrum.FDC, power=0.5))
+    n = pkg.presets.refraction_index.BK7
+    RT.add(pkg.Lens(pkg.SphericalSurface(r=4, R=25), pkg.SphericalSurface(r=4, R=-25),
+                    n=n, pos=[0, 0, 0], d=1.0))
+    RT.add(pkg.IdealLens(r=4, D=10, pos=[0, 0, 6]))
+    RT.add(pkg.Aperture(pkg.RingSurface(r=5, ri=2.5), pos=[0, 0, 10]))
+    RT.add(pkg.Filter(pkg.CircularSurface(r=5), pos=[0, 0, 14],
+                      spectrum=pkg.TransmissionSpectrum("Gaussian", mu=550, sig=80)))
+    RT.add(pkg.Detector(pkg.RectangularSurface(dim=[10, 10]), pos=[0, 0, 40]))
+    RT.add(pkg.Detector(pkg.SphericalSurface(r=5, R=-30), pos=[0, 0, 60]))
+    RT.add(pkg.PointMarker("mark", pos=[0, 0, 20]))
+    RT.add(pkg.BoxVolume(dim=[4, 4], length=5, pos=[0, 0, 30]))
+    return RT
+
+
+@contextlib.contextmanager
+def closing_new_figures():
+    """Close every matplotlib figure that the block opened (the GUI's image
+    actions open one each) and leave the others, such as a live GUI's
+    scene, open."""
+    import matplotlib.pyplot as plt
+    before = set(plt.get_fignums())
+    try:
+        yield
+    finally:
+        for num in set(plt.get_fignums()) - before:
+            plt.close(num)
+
+
+def without_idle_draws(gui):
+    """Make ``draw_idle`` of a GUI's scene canvas do nothing. Under Agg every
+    ``draw_idle`` (a key press, a widget's change) is a whole draw of the 3D
+    scene, about 1 s on the CPU; the GUI tests read state, and draw
+    explicitly where pixels count (screenshots, clicks at projected points)."""
+    gui.scene.fig.canvas.draw_idle = lambda *args, **kwargs: None
+    return gui

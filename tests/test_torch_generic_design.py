@@ -94,3 +94,37 @@ def test_design_render_passes_the_hurb_factor():
     assert float((img_d - img_f).abs().max()) <= 1e-6 * float(img_f.abs().max())
     img_default, _ = _design_and_fused(_hurb_scene(float(np.sqrt(2.0))), ext, 32)
     assert float((img_d - img_default).abs().max()) > 1e-3 * float(img_f.abs().max())
+
+
+def test_pixel_jvp_image_through_a_function_surface():
+    """A per-pixel forward-mode jvp image (``fwAD.dual_level``) of the design
+    render, d(img)/d(z of the function-surface front without ``deriv_func``):
+    the numeric normals take their partials in reverse mode inside the
+    forward level. The image equals the central-difference image within 2 %
+    of its scale (tests/test_torch_diff_families.py), and its sum equals the
+    reverse-mode gradient of the summed image."""
+    import torch.autograd.forward_ad as fwAD
+
+    RT = generic_scene("function_lens", otp, torch)
+    render, params0 = make_parameterized_render(RT, N, extent=list(EXT), Nx=16, Ny=16)
+    pos0 = params0[0]["pos"].detach().clone()
+
+    def img_of(dz):
+        params = [dict(p) for p in params0]
+        params[0] = dict(params[0], pos=pos0 + torch.stack([0 * dz, 0 * dz, dz]))
+        return render(params, 5)[:, :, 3]
+
+    with fwAD.dual_level():
+        dimg = fwAD.unpack_dual(img_of(fwAD.make_dual(torch.tensor(0.0), torch.tensor(1.0)))).tangent
+    h = 0.02
+    with torch.no_grad():
+        fd = (img_of(torch.tensor(h)) - img_of(torch.tensor(-h))) / (2 * h)
+        img_max = float(img_of(torch.tensor(0.0)).max())
+    dz = torch.tensor(0.0, requires_grad=True)
+    img_of(dz).sum().backward()
+    dimg, fd = dimg.detach().numpy(), fd.numpy()
+    assert np.isfinite(dimg).all()
+    scale = np.abs(dimg).max()
+    assert scale > 1e-3 * img_max, "image insensitive to the surface position?"
+    np.testing.assert_allclose(dimg, fd, atol=0.02 * scale)
+    assert float(dimg.sum()) == pytest.approx(float(dz.grad), rel=1e-4, abs=1e-4 * scale)

@@ -21,7 +21,7 @@ from optrace_tpu_torch.presets.geometry import double_gauss
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "optrace_tpu_torch").rglob("*.py")) \
     + sorted((ROOT / "optrace_tpu_torch" / "csrc").glob("*.cu*")) \
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_port.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_port.py", ROOT / "tools" / "allreduce_probe.py"]
 # the glob must reach the kernels, colour and image modules too
 for _new in ("ops/cuda_trace.py", "csrc/trace_step.cuh", "csrc/conic_step.cu", "color/xyz.py", "color/luv.py",
              "color/srgb.py", "image/render_image.py", "image/base_image.py", "image/rgb_image.py",
@@ -34,7 +34,9 @@ for _new in ("ops/cuda_trace.py", "csrc/trace_step.cuh", "csrc/conic_step.cu", "
              "ops/bspline.py", "geometry/surface/function_surface.py",
              "geometry/surface/data_surface.py", "io/load.py", "io/__init__.py", "metadata.py",
              "plots/__init__.py", "plots/init.py", "plots/image_plots.py", "plots/spectrum_plots.py",
-             "plots/chromaticity_plots.py", "plots/misc_plots.py"):
+             "plots/chromaticity_plots.py", "plots/misc_plots.py", "gui/__init__.py",
+             "gui/trace_gui.py", "gui/scene_plotting.py", "gui/interactors.py",
+             "gui/property_browser.py", "gui/command_window.py"):
     assert ROOT / "optrace_tpu_torch" / _new in PORT_FILES, _new
 
 
@@ -80,7 +82,7 @@ def _cpu_raytracer(**kw):
 
 @pytest.mark.parametrize("entry", ["Raytracer", "make_fused_render", "make_generator",
                                    "resolve_device", "iterative_render", "render_huge",
-                                   "convolve"])
+                                   "convolve", "default_mesh", "make_sharded_render"])
 def test_entry_points_raise_without_cuda(entry):
     """``device=None`` means the CUDA device: with no card it raises and
     never carries on on the CPU."""
@@ -100,6 +102,11 @@ def test_entry_points_raise_without_cuda(entry):
         # device; the convolution takes its own
         "convolve": lambda: otp.convolve(otp.presets.psf.gaussian(sig=20.0),
                                          otp.presets.psf.gaussian(sig=0.5)),
+        # the default mesh lies on the CUDA device, before any process group
+        # is looked for; so does the sharded render's default mesh
+        "default_mesh": lambda: otp.default_mesh(),
+        "make_sharded_render": lambda: otp.make_sharded_render(_cpu_raytracer(no_pol=True), 100,
+                                                               Nx=8, Ny=8),
     }
     with pytest.raises(RuntimeError, match="CUDA"), otp.global_options.no_progress_bar():
         calls[entry]()
@@ -145,9 +152,13 @@ def test_flags_and_unported_parts_raise():
         go.cuda_binning = 1
     with pytest.raises(TypeError):
         go.cuda_fuse_planar = "on"
+    # the mesh axis of the sharded render, as in the JAX package
+    assert go.mesh_axis_name == "rays"
+    with pytest.raises(TypeError, match="string"):
+        go.mesh_axis_name = 0
     # function surfaces are ported: a lens of them traces. A generic surface
-    # has no plain description (its closures hold the surface object), and
-    # the render over several devices is still to be ported
+    # has no plain description (its closures hold the surface object). The
+    # render over several devices takes a torch.distributed device mesh
     from optrace_tpu_torch.tracer.scene_compile import compile_surface, surface_fns
     RTf = otp.Raytracer(outline=[-5, 5, -5, 5, -10, 60], device="cpu")
     RTf.add(otp.RaySource(otp.CircularSurface(r=2.0), pos=[0, 0, -5]))
@@ -162,7 +173,7 @@ def test_flags_and_unported_parts_raise():
         surface_fns("generic", {}, "cpu")
     with pytest.raises(TypeError, match="not a surface"):
         compile_surface(otp.Point(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         _cpu_raytracer(no_pol=True).render_huge(100, mesh=object())
     # HURB and image sources are ported: they run
     RT = _cpu_raytracer(use_hurb=True)

@@ -125,7 +125,7 @@ class TestCheckpoint:
 
     def test_render_huge_arguments(self):
         RT = simple_rt()
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             RT.render_huge(1000, mesh=object())
         with pytest.raises(ValueError, match="positive int"):
             RT.render_huge(0)
