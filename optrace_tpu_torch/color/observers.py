@@ -41,6 +41,12 @@ def observer_table(device, dtype=torch.float32):
     return _TABLES[key], _WL0, _WL1
 
 
+def observer_bound() -> float:
+    """The largest value of the three observer functions, or 1 if that is
+    larger: a bound of every channel of an XYZW value per unit weight."""
+    return max(1.0, float(_OBS_PAD.max()))
+
+
 def _interp(wl, row: int):
     """Uniform-grid linear interpolation (1 nm steps): direct index
     arithmetic instead of a binary search — the observer lookup sits on

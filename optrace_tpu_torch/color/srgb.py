@@ -317,6 +317,18 @@ def _primary_inverse_cdfs(wl_range: tuple):
     return wl, tuple(f(wl).numpy() for f in (srgb_r_primary, srgb_g_primary, srgb_b_primary))
 
 
+@functools.lru_cache(maxsize=8)
+def _primary_lookups(wl_range: tuple, device, dtype, u_dtype):
+    """The primaries' power factors (a ``dtype`` tensor on ``device``) and
+    their three inverse CDFs over ``wl_range`` for uniforms of ``u_dtype``:
+    made once for a device, so that a sampled batch copies nothing from the
+    host."""
+    from ..ops import sampling
+    wl, pdfs = _primary_inverse_cdfs(wl_range)
+    factors = torch.as_tensor(SRGB_PRIMARY_POWER_FACTORS, dtype=dtype, device=device)
+    return factors, tuple(sampling.inverse_cdf(wl, f, device, u_dtype) for f in pdfs)
+
+
 def wavelengths_from_srgb(rgb, choice, u) -> torch.Tensor:
     """One wavelength per sRGB colour from two uniforms per colour in
     [0, 1): ``choice`` picks a primary with probability ∝ its linear
@@ -325,14 +337,15 @@ def wavelengths_from_srgb(rgb, choice, u) -> torch.Tensor:
     :param rgb: (N, 3) sRGB values, a tensor on the sampling device
     :param choice, u: (N,) tensors on the same device
     """
-    from ..ops import sampling
     if tools.WL_MIN0 < global_options.wavelength_range[0] \
             or tools.WL_MAX0 > global_options.wavelength_range[1]:
         raise RuntimeError(f"Wavelength range {global_options.wavelength_range} does not "
                            f"include [{tools.WL_MIN0}, {tools.WL_MAX0}] needed here.")
 
     rgbl = srgb_to_srgb_linear(rgb)
-    rgbl = rgbl * torch.as_tensor(SRGB_PRIMARY_POWER_FACTORS, dtype=rgbl.dtype, device=rgbl.device)
+    factors, lookups = _primary_lookups(tuple(global_options.wavelength_range), rgbl.device,
+                                        rgbl.dtype, u.dtype)
+    rgbl = rgbl * factors
     csum = torch.cumsum(rgbl, dim=-1)
     last = csum[:, -1:]
     csum = csum / torch.where(last > 0, last, 1.0)
@@ -340,8 +353,7 @@ def wavelengths_from_srgb(rgb, choice, u) -> torch.Tensor:
     make_b = choice > csum[:, 1]
 
     # the same uniform through all three inverse CDFs, selected per ray
-    wl, pdfs = _primary_inverse_cdfs(tuple(global_options.wavelength_range))
-    wl_r, wl_g, wl_b = (sampling.inverse_transform_from_u(u, wl, f) for f in pdfs)
+    wl_r, wl_g, wl_b = (lookup(u) for lookup in lookups)
     return torch.where(make_r, wl_r, torch.where(make_b, wl_b, wl_g))
 
 

@@ -36,5 +36,8 @@ class Point(BaseClass):
         return tuple(self.pos.repeat(2))
 
     def random_positions(self, gen: torch.Generator, N: int):
-        pos = torch.as_tensor(self.pos, dtype=torch.float32, device=gen.device)
-        return pos.expand(N, 3)
+        # filled on the device, so that a call copies nothing from the host
+        p = torch.empty((N, 3), dtype=torch.float32, device=gen.device)
+        for i in range(3):
+            p[:, i] = float(self.pos[i])
+        return p

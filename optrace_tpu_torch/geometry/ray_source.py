@@ -106,6 +106,9 @@ class RaySource(Element):
 
         self.div_axis_angle = div_axis_angle
         self.div_func = div_func
+        # (the JAX package's constructor drops div_args, so that its
+        # divergence functions fail on an unknown attribute)
+        self.div_args = div_args if div_args is not None else {}
         self.div_2d = div_2d
         self._new_lock = True
 
@@ -115,9 +118,15 @@ class RaySource(Element):
         uniforms ``u`` in [0, 1): the lower bound of ``u`` in the f32
         cumulative pixel power, clipped to the last pixel. ``u`` decides
         the device."""
+        return self._pixel_lookup(u.device)(u)
+
+    def _pixel_lookup(self, device):
+        """:meth:`image_pixels` with the cumulative pixel power made on
+        ``device`` now."""
         cdf = np.cumsum(self._pIf)
-        cdf = torch.as_tensor((cdf / cdf[-1]).astype(np.float32), device=u.device)
-        return torch.clamp(torch.searchsorted(cdf, u, right=False), max=cdf.shape[0] - 1)
+        cdf = torch.as_tensor((cdf / cdf[-1]).astype(np.float32), device=device)
+        last = cdf.shape[0] - 1
+        return lambda u: torch.clamp(torch.searchsorted(cdf, u, right=False), max=last)
 
     def image_positions(self, P, rx, ry):
         """Positions (N, 3) inside the pixels ``P`` (flat indices) of an
@@ -134,39 +143,34 @@ class RaySource(Element):
         """Generate N rays (p, s, pols, weights, wavelengths) as f32 tensors
         on the device of ``gen``. Every sampling stream draws from ``gen``
         in turn, so the streams are independent."""
-        dev = gen.device
-        f32 = torch.float32
+        return self.ray_sampler(N, gen.device, no_pol, power)(gen)
 
+    def ray_sampler(self, N: int, device, no_pol: bool = False, power: float = None):
+        """``gen -> (p, s, pols, weights, wavelengths)``: :meth:`create_rays`
+        of N rays with every table and constant it needs made on ``device``
+        now, so that a call draws from ``gen`` and copies nothing from the
+        host (a render step builds it once; a CUDA graph can capture it)."""
+        f32 = torch.float32
         power = power if power is not None else self.power
-        weights = torch.full((N,), power / N, dtype=f32, device=dev)
 
         # wavelengths (an RGB image draws them below, from its pixels)
-        if not isinstance(self._image, RGBImage):
+        rgb_image = isinstance(self._image, RGBImage)
+        if not rgb_image:
             pc.check_type("RaySource.spectrum", self.spectrum, LightSpectrum)
-            wavelengths = self.spectrum.random_wavelengths(gen, N).to(f32)
-
-        # starting positions
-        if self._image is None:
-            p = self.surface.random_positions(gen, N).to(f32)
-        else:
-            if self._image.shape[0] * self._image.shape[1] == 1:
-                P = torch.zeros((N,), dtype=torch.int64, device=dev)
-            else:
-                P = self.image_pixels(sampling.stratified_interval_sampling(gen, N, 0.0, 1.0))
-            rx, ry = sampling.stratified_rectangle_sampling(gen, N, 0.0, 1.0, 0.0, 1.0)
-            p = self.image_positions(P, rx, ry).to(f32)
-            if isinstance(self._image, RGBImage):
-                pix = torch.as_tensor(self._image._data.reshape(-1, 3), dtype=f32, device=dev)
-                wavelengths = color.random_wavelengths_from_srgb(gen, pix[P]).to(f32)
+            wavelength_fn = self.spectrum.wavelength_sampler(device)
+        if self._image is not None:
+            one_pixel = self._image.shape[0] * self._image.shape[1] == 1
+            pixel_fn = None if one_pixel else self._pixel_lookup(device)
+            if rgb_image:
+                pix = torch.as_tensor(self._image._data.reshape(-1, 3), dtype=f32, device=device)
 
         # orientations
         if self.orientation == "Constant":
-            s_or = torch.as_tensor(self.s, dtype=f32, device=dev).expand(N, 3)
+            s_const = torch.as_tensor(self.s, dtype=f32, device=device)
         elif self.orientation == "Converging":
-            s_or = normalize_safe(torch.as_tensor(self.conv_pos, dtype=f32, device=dev) - p)
+            conv = torch.as_tensor(self.conv_pos, dtype=f32, device=device)
         elif self.orientation == "Function":
             pc.check_callable("RaySource.or_func", self.or_func)
-            s_or = self.or_func(p[:, 0], p[:, 1], **self.or_args)
         else:
             raise RuntimeError(f"Unknown orientation '{self.orientation}'.")  # pragma: no cover
 
@@ -176,99 +180,140 @@ class RaySource(Element):
             pc.check_callable("RaySource.div_func", self.div_func)
         div_rad = math.radians(self.div_angle)
         div_sin = math.sin(div_rad)
-
         if self.div_2d:
             # 2D divergence: alpha takes two discrete values
             a0 = math.radians(self.div_axis_angle)
-            alpha = sampling.inverse_transform_sampling(gen, N, [a0, a0 + math.pi], [1.0, 1.0],
-                                                        kind="discrete")
-
-        if div == "None":
-            s = s_or
-        else:
-            if div == "Lambertian" and not self.div_2d:
-                r, alpha = sampling.stratified_ring_sampling(gen, N, 0.0, div_sin, polar=True)
-                theta = torch.arcsin(r)
-            elif div == "Lambertian":
-                theta = torch.arcsin(sampling.stratified_interval_sampling(gen, N, 0.0, div_sin))
-            elif div == "Isotropic" and not self.div_2d:
-                r, alpha = sampling.stratified_ring_sampling(gen, N, 0.0, div_sin, polar=True)
-                # theta = arccos(1 - r²) rewritten via the half-angle
-                # identity: f32-stable for small cones, where 1 - r² rounds
-                # to ~6 discrete levels (ulp(1.0)=1.2e-7 vs r² ~ 1e-6) and
-                # would quantize the whole divergence distribution
-                theta = 2.0 * torch.arcsin(r * math.sqrt(0.5))
-            elif div == "Isotropic":
-                theta = sampling.stratified_interval_sampling(gen, N, 0.0, div_rad)
-            elif div == "Function" and not self.div_2d:
-                r, alpha = sampling.stratified_ring_sampling(gen, N, 0.0, div_sin, polar=True)
-                x = np.linspace(0.0, div_rad, 1000)
+            alpha_fn = sampling.inverse_transform_sampler([a0, a0 + math.pi], [1.0, 1.0], device,
+                                                          kind="discrete")
+        if div == "Function":
+            x = np.linspace(0.0, div_rad, 1000)
+            if not self.div_2d:
                 f = np.asarray(self.div_func(x, **self.div_args)) * np.sin(x)
-                theta = sampling.inverse_transform_from_u(r ** 2 / div_sin ** 2, x, f)
-            elif div == "Function":
-                x = np.linspace(0.0, div_rad, 1000)
-                f = np.asarray(self.div_func(x, **self.div_args))
-                theta = sampling.inverse_transform_sampling(gen, N, x, f)
+                theta_lookup = sampling.inverse_cdf(x, f, device)
             else:
-                raise RuntimeError(f"Unknown divergence '{div}'.")  # pragma: no cover
-
-            # local frame around s_or: sy = [1,0,0] × s_or (normalized), sx = s_or × sy
-            fa = 1.0 / torch.sqrt(torch.clamp(1.0 - s_or[:, 0] ** 2, min=1e-12))
-            sy = torch.stack([torch.zeros_like(fa), -s_or[:, 2] * fa, s_or[:, 1] * fa], dim=-1)
-            sx = tcross(s_or, sy)
-            th = theta[:, None]
-            al = alpha[:, None]
-            s = torch.cos(th) * s_or + torch.sin(th) * (torch.cos(al) * sx + torch.sin(al) * sy)
+                f = np.asarray(self.div_func(x, **self.div_args))
+                theta_fn = sampling.inverse_transform_sampler(x, f, device)
+        elif div not in ("None", "Lambertian", "Isotropic"):
+            raise RuntimeError(f"Unknown divergence '{div}'.")  # pragma: no cover
 
         # polarization
-        if no_pol:
-            pols = torch.full((N, 3), float("nan"), dtype=f32, device=dev)
-        else:
-            polm = self.polarization
-            if polm == "x":
-                ang = torch.zeros((N,), dtype=f32, device=dev)
-            elif polm == "y":
-                ang = torch.full((N,), math.pi / 2, dtype=f32, device=dev)
-            elif polm == "xy":
-                ang = sampling.inverse_transform_sampling(
-                    gen, N, [0.0, math.pi / 2], [1.0, 1.0], kind="discrete")
-            elif polm == "Constant":
-                ang = torch.full((N,), math.radians(self.pol_angle), dtype=f32, device=dev)
-            elif polm == "Uniform":
-                ang = sampling.stratified_interval_sampling(gen, N, 0.0, 2 * math.pi)
+        polm = self.polarization
+        if not no_pol:
+            if polm == "xy":
+                pol_fn = sampling.inverse_transform_sampler([0.0, math.pi / 2], [1.0, 1.0], device,
+                                                            kind="discrete")
             elif polm == "List":
                 pc.check_type("RaySource.pol_angles", self.pol_angles, (np.ndarray, list))
-                probs = self.pol_probs if self.pol_probs is not None else np.ones_like(self.pol_angles)
-                ang = torch.deg2rad(sampling.inverse_transform_sampling(
-                    gen, N, self.pol_angles, probs, kind="discrete"))
+                probs = self.pol_probs if self.pol_probs is not None \
+                    else np.ones_like(self.pol_angles)
+                pol_fn = sampling.inverse_transform_sampler(self.pol_angles, probs, device,
+                                                            kind="discrete")
             elif polm == "Function":
                 pc.check_callable("RaySource.pol_func", self.pol_func)
                 x = np.linspace(0.0, 2 * np.pi, 5000)
                 f = np.asarray(self.pol_func(x, **self.pol_args))
-                ang = torch.deg2rad(sampling.inverse_transform_sampling(gen, N, x, f))
-            else:
+                pol_fn = sampling.inverse_transform_sampler(x, f, device)
+            elif polm not in ("x", "y", "Constant", "Uniform"):
                 raise RuntimeError(f"Unknown polarization '{polm}'.")  # pragma: no cover
 
-            # transport the xy-plane polarization onto each ray's transverse
-            # plane. The in-plane frame axis comes from s_xy DIRECTLY
-            # (|ps| = 1 by construction): 1/sqrt(1−s_z²) is an f32 trap —
-            # normalize can round s_z one ulp above 1, the sqrt clamps to 0
-            # and a guard factor would turn some polarization vectors into
-            # garbage
-            zero = torch.zeros_like(ang)
-            pol0 = torch.stack([torch.cos(ang), torch.sin(ang), zero], dim=-1)
-            rxy = torch.hypot(s[:, 0], s[:, 1])
-            axial = rxy < 1e-9
-            fa = 1.0 / torch.where(axial, 1.0, rxy)
-            ps = torch.stack([s[:, 1] * fa, -s[:, 0] * fa, zero], dim=-1)
-            A_ts = ps[:, 0] * pol0[:, 0] + ps[:, 1] * pol0[:, 1]
-            A_tp = ps[:, 1] * pol0[:, 0] - ps[:, 0] * pol0[:, 1]
-            pp_ = tcross(ps, s)
-            pol_t = ps * A_ts[:, None] + pp_ * A_tp[:, None]
-            # axial rays: the xy-plane polarization is already transverse
-            pols = torch.where(axial[:, None], pol0, pol_t)
+        def sample(gen):
+            dev = gen.device
+            weights = torch.full((N,), power / N, dtype=f32, device=dev)
+            if not rgb_image:
+                wavelengths = wavelength_fn(gen, N).to(f32)
 
-        return p, s.contiguous(), pols, weights, wavelengths
+            # starting positions
+            if self._image is None:
+                p = self.surface.random_positions(gen, N).to(f32)
+            else:
+                if one_pixel:
+                    P = torch.zeros((N,), dtype=torch.int64, device=dev)
+                else:
+                    P = pixel_fn(sampling.stratified_interval_sampling(gen, N, 0.0, 1.0))
+                rx, ry = sampling.stratified_rectangle_sampling(gen, N, 0.0, 1.0, 0.0, 1.0)
+                p = self.image_positions(P, rx, ry).to(f32)
+                if rgb_image:
+                    wavelengths = color.random_wavelengths_from_srgb(gen, pix[P]).to(f32)
+
+            if self.orientation == "Constant":
+                s_or = s_const.expand(N, 3)
+            elif self.orientation == "Converging":
+                s_or = normalize_safe(conv - p)
+            else:
+                s_or = self.or_func(p[:, 0], p[:, 1], **self.or_args)
+
+            if self.div_2d:
+                alpha = alpha_fn(gen, N)
+
+            if div == "None":
+                s = s_or
+            else:
+                if div == "Lambertian" and not self.div_2d:
+                    r, alpha = sampling.stratified_ring_sampling(gen, N, 0.0, div_sin, polar=True)
+                    theta = torch.arcsin(r)
+                elif div == "Lambertian":
+                    theta = torch.arcsin(sampling.stratified_interval_sampling(gen, N, 0.0, div_sin))
+                elif div == "Isotropic" and not self.div_2d:
+                    r, alpha = sampling.stratified_ring_sampling(gen, N, 0.0, div_sin, polar=True)
+                    # theta = arccos(1 - r²) rewritten via the half-angle
+                    # identity: f32-stable for small cones, where 1 - r² rounds
+                    # to ~6 discrete levels (ulp(1.0)=1.2e-7 vs r² ~ 1e-6) and
+                    # would quantize the whole divergence distribution
+                    theta = 2.0 * torch.arcsin(r * math.sqrt(0.5))
+                elif div == "Isotropic":
+                    theta = sampling.stratified_interval_sampling(gen, N, 0.0, div_rad)
+                elif not self.div_2d:      # Function
+                    r, alpha = sampling.stratified_ring_sampling(gen, N, 0.0, div_sin, polar=True)
+                    theta = theta_lookup(r ** 2 / div_sin ** 2)
+                else:
+                    theta = theta_fn(gen, N)
+
+                # local frame around s_or: sy = [1,0,0] × s_or (normalized), sx = s_or × sy
+                fa = 1.0 / torch.sqrt(torch.clamp(1.0 - s_or[:, 0] ** 2, min=1e-12))
+                sy = torch.stack([torch.zeros_like(fa), -s_or[:, 2] * fa, s_or[:, 1] * fa], dim=-1)
+                sx = tcross(s_or, sy)
+                th = theta[:, None]
+                al = alpha[:, None]
+                s = torch.cos(th) * s_or + torch.sin(th) * (torch.cos(al) * sx + torch.sin(al) * sy)
+
+            # polarization
+            if no_pol:
+                pols = torch.full((N, 3), float("nan"), dtype=f32, device=dev)
+            else:
+                if polm == "x":
+                    ang = torch.zeros((N,), dtype=f32, device=dev)
+                elif polm == "y":
+                    ang = torch.full((N,), math.pi / 2, dtype=f32, device=dev)
+                elif polm == "xy":
+                    ang = pol_fn(gen, N)
+                elif polm == "Constant":
+                    ang = torch.full((N,), math.radians(self.pol_angle), dtype=f32, device=dev)
+                elif polm == "Uniform":
+                    ang = sampling.stratified_interval_sampling(gen, N, 0.0, 2 * math.pi)
+                else:       # List, Function
+                    ang = torch.deg2rad(pol_fn(gen, N))
+
+                # transport the xy-plane polarization onto each ray's transverse
+                # plane. The in-plane frame axis comes from s_xy DIRECTLY
+                # (|ps| = 1 by construction): 1/sqrt(1−s_z²) is an f32 trap —
+                # normalize can round s_z one ulp above 1, the sqrt clamps to 0
+                # and a guard factor would turn some polarization vectors into
+                # garbage
+                zero = torch.zeros_like(ang)
+                pol0 = torch.stack([torch.cos(ang), torch.sin(ang), zero], dim=-1)
+                rxy = torch.hypot(s[:, 0], s[:, 1])
+                axial = rxy < 1e-9
+                fa = 1.0 / torch.where(axial, 1.0, rxy)
+                ps = torch.stack([s[:, 1] * fa, -s[:, 0] * fa, zero], dim=-1)
+                A_ts = ps[:, 0] * pol0[:, 0] + ps[:, 1] * pol0[:, 1]
+                A_tp = ps[:, 1] * pol0[:, 0] - ps[:, 0] * pol0[:, 1]
+                pp_ = tcross(ps, s)
+                pol_t = ps * A_ts[:, None] + pp_ * A_tp[:, None]
+                # axial rays: the xy-plane polarization is already transverse
+                pols = torch.where(axial[:, None], pol0, pol_t)
+
+            return p, s.contiguous(), pols, weights, wavelengths
+        return sample
 
     # ------------------------------------------------------------------
     def color(self, rendering_intent: str = "Ignore", clip: bool = False):

@@ -24,7 +24,10 @@ from ...utils.warnings import warning
 
 
 def _as_tensor(v, like):
-    """A user function's result as a tensor of ``like``'s dtype and device."""
+    """A user function's result as a tensor of ``like``'s dtype and device
+    (a number is filled on the device: no copy from the host)."""
+    if isinstance(v, (int, float)):
+        return torch.full((), v, dtype=like.dtype, device=like.device)
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 

@@ -1,16 +1,23 @@
 """Detector binning: scatter-add of observer-weighted ray hits into XYZW
 image tiles (plain PyTorch).
 
-Counterpart of ``optrace_tpu/ops/binning.py``. :func:`bin_xyzw` is the plain
-version that the CUDA kernel in :mod:`.cuda_binning` is held against;
-:func:`bin_scalar`, :func:`bin_xyzw_sorted`, :func:`bin_xyzw_soft` and
-:func:`histogram_1d` are tensor functions on the device of their inputs;
-:func:`bin_xyzw_soft` is the differentiable one.
+Counterpart of ``optrace_tpu/ops/binning.py``. :func:`bin_xyzw` adds the
+f32 values with ``index_add_`` and is the CPU route of the binning kernel
+(:mod:`.cuda_binning`); :func:`bin_xyzw_fixed` is the kernel's plain
+version: the same values added as 64-bit integers, so that the image does
+not depend on the order of the rays. :func:`bin_scalar`,
+:func:`bin_xyzw_sorted`, :func:`bin_xyzw_soft` and :func:`histogram_1d` are
+tensor functions on the device of their inputs; :func:`bin_xyzw_soft` is the
+differentiable one.
 """
 
 import torch
 
-from ..color.observers import x_observer, y_observer, z_observer
+from ..color.observers import x_observer, y_observer, z_observer, observer_bound
+
+# the integers of one call sum to less than 2**FIXED_BITS in magnitude: one
+# bit of headroom in an int64 for the rounding of each ray's values
+FIXED_BITS = 62
 
 
 def binning_indices_2d(x, y, w, Nx: int, Ny: int, extent):
@@ -52,6 +59,52 @@ def bin_xyzw(px, py, w, wl, Nx: int, Ny: int, extent, out=None):
         out = torch.zeros((Ny, Nx, 4), dtype=xyzw.dtype, device=xyzw.device)
     out.view(Ny * Nx, 4).index_add_(0, flat, xyzw)
     return out
+
+
+def fixed_point_exponent(w):
+    """The exponent ``e`` of the fixed point of :func:`bin_xyzw_fixed` for
+    the weights ``w``: :func:`exponent_for` of max|w| and len(w), a 0-dim
+    int64 tensor on the device of ``w`` (nothing is read back)."""
+    wmax = torch.abs(w).amax() if w.numel() else torch.zeros((), dtype=w.dtype, device=w.device)
+    return exponent_for(wmax, w.shape[0])
+
+
+def exponent_for(wmax, N: int):
+    """The largest ``e`` with N·wmax·B·2^e < 2^FIXED_BITS, where B is the
+    largest observer value or 1 (:func:`observer_bound`), for a 0-dim f32
+    tensor ``wmax``: taken from the exponent field of that bound in f64, so
+    a bound of 0 gives ``FIXED_BITS``."""
+    bound = wmax.to(torch.float64) * float(N) * observer_bound()
+    biased = bound.view(torch.int64) >> 52        # bound >= 0: no sign bit
+    return torch.where(biased == 0, FIXED_BITS, FIXED_BITS + 1022 - biased)
+
+
+def pow2(e):
+    """2^e as an f64 tensor, exactly, for an int64 tensor ``e`` in [-1022, 1023]."""
+    return ((e + 1023) << 52).view(torch.float64)
+
+
+def bin_xyzw_fixed(px, py, w, wl, Nx: int, Ny: int, extent, out=None):
+    """:func:`bin_xyzw` in fixed point: each ray's four f32 values (X̄w, Ȳw,
+    Z̄w, w) are rounded once, half to even, to integers at the scale 2^e of
+    :func:`fixed_point_exponent`, summed as int64 and converted to f32 once a
+    pixel. Integer sums do not depend on their order, so the image is a
+    function of the set of rays. A channel whose sum is 0 leaves ``out``
+    untouched; ``out`` (Ny, Nx, 4) f32, when given, is accumulated into in
+    place, otherwise a zeroed image is made. The plain version of the CUDA
+    binning kernel, bit for bit."""
+    xi, yi, wm = binning_indices_2d(px, py, w, Nx, Ny, extent)
+    xyzw = torch.stack([x_observer(wl) * wm, y_observer(wl) * wm,
+                        z_observer(wl) * wm, wm], dim=-1)
+    e = fixed_point_exponent(w)
+    q = torch.round(xyzw.to(torch.float64) * pow2(e)).to(torch.int64)
+    acc = torch.zeros((Ny * Nx, 4), dtype=torch.int64, device=q.device)
+    acc.index_add_(0, yi * Nx + xi, q)
+    acc = acc.view(Ny, Nx, 4)
+    img = (acc.to(torch.float64) * pow2(-e)).to(torch.float32)
+    if out is None:
+        return img
+    return out.copy_(torch.where(acc != 0, out + img, out))
 
 
 def bin_scalar(px, py, w, Nx: int, Ny: int, extent):

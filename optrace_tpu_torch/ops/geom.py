@@ -163,7 +163,9 @@ def mask_ring(x, y, ri, r):
 
 
 def _rotate2d(x, y, angle_rad):
-    a = torch.as_tensor(angle_rad, dtype=x.dtype, device=x.device)
+    a = torch.as_tensor(angle_rad, dtype=x.dtype, device=x.device) \
+        if isinstance(angle_rad, torch.Tensor) \
+        else torch.full((), angle_rad, dtype=x.dtype, device=x.device)   # no copy from the host
     c, s = torch.cos(a), torch.sin(a)
     return x * c + y * s, -x * s + y * c
 

@@ -135,35 +135,55 @@ def cdf_from_pdf(x: np.ndarray, f: np.ndarray) -> np.ndarray:
     return cdf / cdf[-1]
 
 
-def inverse_transform_from_u(u, x: np.ndarray, f: np.ndarray):
-    """Map uniform samples u∈[0,1] (tensor) through the inverse CDF of the
-    pdf f tabulated over x (host numpy).
+def inverse_cdf(x, f, device, dtype=torch.float32):
+    """``u -> x``: the inverse CDF of the pdf ``f`` tabulated over ``x``
+    (host data), for uniforms ``u`` in [0, 1] of ``dtype`` on ``device``.
 
-    The inverse CDF is resampled once onto a uniform u-grid so the per-ray
-    lookup is index arithmetic instead of a binary search.
+    The inverse CDF is resampled once onto a uniform u-grid, so the per-ray
+    lookup is index arithmetic instead of a binary search; the table is
+    made on the device now, and a call copies nothing from the host.
     """
     x = np.asarray(x, dtype=np.float64)
     M = 4096
-    table = invert_cdf_uniform(x, cdf_from_pdf(x, f), M)
-    return uniform_interp(u, table, 0.0, 1.0 / (M - 1),
-                          left=float(x[0]), right=float(x[-1]))
+    table = torch.as_tensor(invert_cdf_uniform(x, cdf_from_pdf(x, f), M), dtype=dtype,
+                            device=device)
+    left, right = float(x[0]), float(x[-1])
+    return lambda u: uniform_interp(u, table, 0.0, 1.0 / (M - 1), left=left, right=right)
 
 
-def inverse_transform_sampling(gen, N: int, x, f, kind: str = "continuous"):
-    """Sample N values from a tabulated distribution (tables: host numpy).
+def inverse_transform_from_u(u, x: np.ndarray, f: np.ndarray):
+    """Map uniform samples u∈[0,1] (tensor) through the inverse CDF of the
+    pdf f tabulated over x (host numpy): :func:`inverse_cdf` on u's device."""
+    return inverse_cdf(x, f, u.device, u.dtype)(u)
+
+
+def inverse_transform_sampler(x, f, device, kind: str = "continuous"):
+    """``(gen, N) -> N samples`` of a tabulated distribution (tables: host
+    data, moved to ``device`` now, so a call copies nothing from the host).
 
     kind="continuous": f is a pdf over grid x, sampled by linear inverse-CDF
     interpolation. kind="discrete": f are probabilities of the discrete
     values x. Uses stratified uniforms so spectral sampling noise drops ~1/N.
     """
-    u = stratified_interval_sampling(gen, N, 0.0, 1.0, shuffle=True)
     if kind == "continuous":
-        return inverse_transform_from_u(u, x, f)
+        lookup = inverse_cdf(x, f, device)
+        return lambda gen, N: lookup(stratified_interval_sampling(gen, N, 0.0, 1.0, shuffle=True))
     if kind == "discrete":
         x = np.asarray(x, dtype=np.float64)
         f = np.asarray(f, dtype=np.float64)
-        cdf = torch.as_tensor(np.cumsum(f / np.sum(f)), dtype=u.dtype, device=u.device)
-        idx = torch.searchsorted(cdf, u, right=False)
-        idx = torch.clamp(idx, 0, x.shape[0] - 1)
-        return torch.as_tensor(x, dtype=u.dtype, device=u.device)[idx]
+        cdf = torch.as_tensor(np.cumsum(f / np.sum(f)), dtype=torch.float32, device=device)
+        vals = torch.as_tensor(x, dtype=torch.float32, device=device)
+        last = x.shape[0] - 1
+
+        def sample(gen, N):
+            u = stratified_interval_sampling(gen, N, 0.0, 1.0, shuffle=True)
+            idx = torch.clamp(torch.searchsorted(cdf, u, right=False), 0, last)
+            return vals[idx]
+        return sample
     raise ValueError(f"Unknown sampling kind '{kind}'.")
+
+
+def inverse_transform_sampling(gen, N: int, x, f, kind: str = "continuous"):
+    """Sample N values from a tabulated distribution (tables: host numpy):
+    :func:`inverse_transform_sampler` on the generator's device."""
+    return inverse_transform_sampler(x, f, gen.device, kind)(gen, N)

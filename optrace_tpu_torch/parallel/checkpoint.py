@@ -14,11 +14,12 @@ has: only rank 0 of the group writes the file, every rank reads it, and all
 ranks wait at a barrier after each save, so no rank runs ahead of a
 checkpoint that is still being written.
 
-The tiles are summed in f64 on the device they arrive on and come to the
-host when the checkpoint is saved or the image is read. On the CPU a
-resumed render equals the uninterrupted one exactly; on a CUDA device each
-tile carries the rounding of the binning kernel's f32 atomic sums, whose
-order differs from run to run.
+The tiles are summed in f64 on the device they arrive on, in the order of
+the batches, and come to the host when the checkpoint is saved or the image
+is read. A batch is a function of its generator on every device: on a CUDA
+device the binning kernel sums in fixed point, whose result does not depend
+on the order of the rays, and a replayed graph equals the eager batch. So a
+resumed render equals the uninterrupted one bit for bit.
 """
 
 import os

@@ -14,6 +14,11 @@ The sharded render follows PyTorch's idiom of one process per device
 generator, divides its tile by the number of ranks, and an ``all_reduce``
 sums the tiles, so every rank holds the whole image. This is the JAX
 package's shard_map with a ``psum``, in the same order (divide, then sum).
+
+Where the JAX package jits the batch, a step here on a CUDA device is
+captured into a CUDA graph on its second call and replayed after that
+(:mod:`.graph`); on the CPU it stays eager. :func:`_eager_fused_render` builds
+the eager step, which the captured one is held against.
 """
 
 import torch
@@ -30,6 +35,7 @@ from ..ops.cuda_binning import bin_xyzw_cuda
 from ..utils.device import resolve_device
 from ..utils.global_options import global_options
 from .checkpoint import batch_generator
+from .graph import capture
 
 
 def _detector_sink(RT, detector_index: int, projection_method, extent,
@@ -78,7 +84,17 @@ def _detector_sink(RT, detector_index: int, projection_method, extent,
     return sink, finalize, ext, seg_mask
 
 
-def make_fused_render_multi(RT, N_batch: int, configs: list, device=None):
+def _scene_snapshot(RT):
+    """What a render step built now depends on and reads anew at every eager
+    call: the raytracer's snapshot without its stored rays, and the
+    wavelength range that the sources sample."""
+    snap = RT.tracing_snapshot()
+    del snap["Rays"]
+    snap["WavelengthRange"] = tuple(global_options.wavelength_range)
+    return snap
+
+
+def make_fused_render_multi(RT, N_batch: int, configs: list, device=None, _batches=None):
     """Streaming fused render for several detector views of ONE trace.
 
     :param RT: Raytracer (geometry checked, detectors already positioned)
@@ -89,15 +105,32 @@ def make_fused_render_multi(RT, N_batch: int, configs: list, device=None):
         moved there BEFORE its sink is captured) and filter_extent
     :param device: ``None`` is the CUDA device (raises without one)
     :return: (render(gen) -> (list[(Ny,Nx,4) imgs], infos), list[extent]);
-        ``gen`` is a ``torch.Generator`` on the render's device
+        ``gen`` is a ``torch.Generator`` on the render's device. On a CUDA
+        device the step is captured into a CUDA graph at its second call and
+        replayed after that (:class:`.graph.CapturedStep`): the same images,
+        INFOS and generator advance as the eager step, bit for bit; it
+        refuses to run once the scene has changed. The images are the
+        caller's own. A caller that knows how many batches it renders
+        passes ``_batches``; too few to pay for a capture keep the step
+        eager (:func:`.graph.capture`).
     """
+    render, exts = _eager_fused_render(RT, N_batch, configs, device)
+    return capture(render, resolve_device(device), lambda: _scene_snapshot(RT), _batches), exts
+
+
+def _eager_fused_render(RT, N_batch: int, configs: list, device=None):
+    """:func:`make_fused_render_multi`'s step as eager PyTorch on every
+    device: the step that a captured one is compared with."""
     device = resolve_device(device)
     RT.rays.init(RT.ray_sources, N_batch, len(RT.tracing_surfaces) + 2, RT.no_pol)
     steps = RT._build_steps(device)
-    plans = RunPlans(steps)     # the runs' step tables: built by the first batch, kept for the rest
-    source_fn = RT._make_source_fn(N_batch)
+    plans = RunPlans(steps)
+    # the runs' step tables, the sources' and media's tables: made here or by
+    # the first batch and kept, so that a later batch copies nothing from
+    # the host
+    source_fn = RT._make_source_fn(N_batch, device)
     outline = tuple(float(v) for v in RT.outline)
-    n0_fn = RT.n0
+    n0_fn = RT.n0.on_device(device)
     no_pol, use_hurb = RT.no_pol, RT.use_hurb
     hurb_factor = float(RT.HURB_FACTOR)
 
@@ -135,7 +168,9 @@ def make_fused_render(RT, N_batch: int, detector_index: int = 0,
                       projection_method: str = "Equidistant", device=None):
     """Single-detector fused render step: generator → (Ny, Nx, 4) XYZW image.
 
-    ``extent`` of None is the detector surface's own extent.
+    ``extent`` of None is the detector surface's own extent. On a CUDA
+    device the step is captured into a CUDA graph at its second call, as
+    :func:`make_fused_render_multi`'s is.
     """
     render, exts = make_fused_render_multi(
         RT, N_batch, [dict(detector_index=detector_index, extent=extent,
@@ -168,7 +203,7 @@ def default_mesh(axis_name: str = "rays", device=None) -> DeviceMesh:
 
 def make_sharded_render(RT, N_batch: int, mesh: DeviceMesh = None, detector_index: int = 0,
                         extent=None, Nx: int = 945, Ny: int = 945, axis_name: str = "rays",
-                        projection_method: str = "Equidistant"):
+                        projection_method: str = "Equidistant", _batches=None):
     """Fused render step sharded over the ``axis_name`` axis of a device mesh.
 
     Every rank of the axis calls this and then the step, with the same
@@ -180,7 +215,11 @@ def make_sharded_render(RT, N_batch: int, mesh: DeviceMesh = None, detector_inde
     batch index, rank) (``checkpoint.shard_seed``), and rank 0 draws the
     stream of the unsharded batch, so on one rank the step equals the fused
     render of ``batch_generator(seed, batch_index)``. The step carries the
-    mesh axis's process ``group`` and this process's ``rank`` in it.
+    mesh axis's process ``group`` and this process's ``rank`` in it. On a
+    CUDA device the rank's render and its division by the number of ranks
+    are captured into a CUDA graph at the second batch and replayed; the
+    all-reduce runs after the replay. ``_batches`` as in
+    :func:`make_fused_render_multi`.
 
     :param mesh: a ``DeviceMesh`` on the device type of ``RT.device``;
         ``None`` is :func:`default_mesh` on the CUDA device
@@ -200,15 +239,24 @@ def make_sharded_render(RT, N_batch: int, mesh: DeviceMesh = None, detector_inde
     if N_batch % world:
         raise ValueError(f"N_batch={N_batch} must be divisible by the mesh size {world}.")
 
-    render_one, ext = make_fused_render(RT, N_batch // world, detector_index, extent, Nx, Ny,
-                                        projection_method, device=RT.device)
+    render, exts = _eager_fused_render(
+        RT, N_batch // world, [dict(detector_index=detector_index, extent=extent,
+                                    projection_method=projection_method, Nx=Nx, Ny=Ny)],
+        device=RT.device)
 
-    def step(batch_index: int, seed: int = 0):
+    def shard(gen):
         # each shard samples its rays at full source power; rescale so the
         # sum over the shards carries the true total power
-        tile = render_one(batch_generator(seed, batch_index, RT.device, rank)) / world
+        return render(gen)[0][0] / world
+
+    # on a CUDA device the division is part of the captured graph; the
+    # all-reduce stays outside it, an eager collective after the replay
+    shard = capture(shard, RT.device, lambda: _scene_snapshot(RT), _batches)
+
+    def step(batch_index: int, seed: int = 0):
+        tile = shard(batch_generator(seed, batch_index, RT.device, rank))
         dist.all_reduce(tile, op=dist.ReduceOp.SUM, group=group)
         return tile
 
     step.group, step.rank = group, rank
-    return step, ext
+    return step, exts[0]

@@ -60,39 +60,49 @@ class LightSpectrum(Spectrum):
     def random_wavelengths(self, gen: torch.Generator, N: int):
         """Sample N wavelengths (f32 tensor on the generator's device)
         following the spectral distribution."""
+        return self.wavelength_sampler(gen.device)(gen, N)
+
+    def wavelength_sampler(self, device):
+        """``(gen, N) -> N wavelengths`` (f32 on ``device``) following the
+        spectral distribution, with every table it needs made on ``device``
+        now: a call draws from ``gen`` and copies nothing from the host."""
         st = self.spectrum_type
 
         if st == "Monochromatic":
-            return torch.full((N,), self.wl, dtype=torch.float32, device=gen.device)
+            wl = self.wl
+            return lambda gen, N: torch.full((N,), wl, dtype=torch.float32, device=gen.device)
 
         if st in ("Constant", "Rectangle"):
             wl0 = go.wavelength_range[0] if st == "Constant" else self.wl0
             wl1 = go.wavelength_range[1] if st == "Constant" else self.wl1
-            return sampling.stratified_interval_sampling(gen, N, wl0, wl1)
+            return lambda gen, N: sampling.stratified_interval_sampling(gen, N, wl0, wl1)
 
         if st == "Lines":
             pc.check_type("LightSpectrum.lines", self.lines, (np.ndarray, list))
             pc.check_type("LightSpectrum.line_vals", self.line_vals, (np.ndarray, list))
-            return sampling.inverse_transform_sampling(
-                gen, N, self.lines, self.line_vals, kind="discrete")
+            return sampling.inverse_transform_sampler(self.lines, self.line_vals, device,
+                                                      kind="discrete")
 
         if st == "Data":
             pc.check_type("LightSpectrum.wls", self._wls, (np.ndarray, list))
             pc.check_type("LightSpectrum.vals", self._vals, (np.ndarray, list))
-            return sampling.inverse_transform_sampling(
-                gen, N, self._wls, self._vals)
+            return sampling.inverse_transform_sampler(self._wls, self._vals, device)
 
         if st == "Gaussian":
             # analytic truncated-Gaussian via erf/erfinv over the visible range
-            Xl = (1 + scipy.special.erf((go.wavelength_range[0] - self.mu) / (math.sqrt(2) * self.sig))) / 2
-            Xr = (1 + scipy.special.erf((go.wavelength_range[1] - self.mu) / (math.sqrt(2) * self.sig))) / 2
-            X = sampling.stratified_interval_sampling(gen, N, Xl, Xr)
-            return self.mu + math.sqrt(2) * self.sig * torch.special.erfinv(2 * X - 1)
+            mu, sig = self.mu, self.sig
+            Xl = (1 + scipy.special.erf((go.wavelength_range[0] - mu) / (math.sqrt(2) * sig))) / 2
+            Xr = (1 + scipy.special.erf((go.wavelength_range[1] - mu) / (math.sqrt(2) * sig))) / 2
+
+            def gaussian(gen, N):
+                X = sampling.stratified_interval_sampling(gen, N, Xl, Xr)
+                return mu + math.sqrt(2) * sig * torch.special.erfinv(2 * X - 1)
+            return gaussian
 
         if st in ("Blackbody", "Function", "Histogram"):
             cnt = 4000 if st == "Blackbody" else 10000
             wlr = color.wavelengths(cnt)
-            return sampling.inverse_transform_sampling(gen, N, wlr, self(wlr))
+            return sampling.inverse_transform_sampler(wlr, self(wlr), device)
 
         raise RuntimeError(f"Unhandled spectrum_type '{st}'.")  # pragma: no cover
 

@@ -171,6 +171,28 @@ class RefractionIndex(Spectrum):
                                    f"at {np.asarray(wl_).ravel()[wlb % max(np.asarray(wl_).size, 1)]:.4g}nm.")
         return ns
 
+    def on_device(self, device, dtype=torch.float32):
+        """``wl -> n`` for tensors of ``dtype`` on ``device``: the index
+        itself, or for tabulated data a function whose table is made on the
+        device now. Its range check reads the device, so under a CUDA
+        graph's capture it is left to the eager call before it."""
+        if self.spectrum_type != "Data":
+            return self
+        from ..ops.interp import uniform_interp
+        table = torch.as_tensor(np.asarray(self._vals), dtype=dtype, device=device)
+        wl0, dwl = float(self._wls[0]), float(self._wls[1] - self._wls[0])
+        left, right = float(self._vals[0]), float(self._vals[-1])
+
+        def n(wl):
+            if wl.numel() and not (wl.is_cuda and torch.cuda.is_current_stream_capturing()):
+                wlmin, wlmax = float(wl.min()), float(wl.max())
+                if wlmin < self._wls[0] or wlmax > self._wls[-1]:
+                    raise RuntimeError(f"Wavelength range [{wlmin:.5g}, {wlmax:.5g}] larger than "
+                                       f"data range [{self._wls[0]}, {self._wls[-1]}] for this "
+                                       "material.")
+            return uniform_interp(wl, table, wl0, dwl, left=left, right=right)
+        return n
+
     # ------------------------------------------------------------------
     def abbe_number(self, lines: list = None) -> float:
         """Abbe number V = (n_center − 1)/(n_short − n_long)."""

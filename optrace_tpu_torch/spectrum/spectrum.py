@@ -109,6 +109,18 @@ class Spectrum(BaseClass):
 
         raise RuntimeError(f"Unhandled spectrum_type '{st}'.")  # pragma: no cover
 
+    def on_device(self, device, dtype=torch.float32):
+        """``wl -> values`` for tensors of ``dtype`` on ``device``: the
+        spectrum itself, or for tabulated data a function whose table is
+        made on the device now, so that a call copies nothing from the host
+        (what a trace step holds)."""
+        if self.spectrum_type != "Data":
+            return self
+        from ..ops.interp import uniform_interp
+        table = torch.as_tensor(np.asarray(self._vals), dtype=dtype, device=device)
+        wl0, dwl = float(self._wls[0]), float(self._wls[1] - self._wls[0])
+        return lambda wl: uniform_interp(wl, table, wl0, dwl, left=0.0, right=0.0)
+
     def get_desc(self, fallback: str = None) -> str:
         fallback = str(self.val) if self.spectrum_type == "Constant" else self.spectrum_type
         return super().get_desc(fallback=fallback)

@@ -7,6 +7,7 @@ trace) and host data in numpy, like every spectrum of the port.
 """
 
 import numpy as np
+import torch
 
 from .spectrum import Spectrum
 from .. import color
@@ -43,6 +44,12 @@ class TransmissionSpectrum(Spectrum):
     def __call__(self, wl):
         vals = super().__call__(wl)
         return 1.0 - vals if self.inverse else vals
+
+    def on_device(self, device, dtype=torch.float32):
+        fn = super().on_device(device, dtype)
+        if fn is self or not self.inverse:
+            return fn
+        return lambda wl: 1.0 - fn(wl)
 
     def __setattr__(self, key, val) -> None:
         if key == "val" and isinstance(val, (int, float)):

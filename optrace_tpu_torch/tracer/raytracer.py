@@ -274,27 +274,30 @@ class Raytracer(Group):
         variant of the same scene."""
         device = self.device if device is None else torch.device(device)
         steps = []
-        n_before = self.n0
+        n_before = n0 = self.n0.on_device(device, dtype)
 
         def ph(surf):
             return tuple(float(v) for v in surf.pos)
 
+        # media and spectra with their tables on the device (Spectrum.on_device)
         for el in self._tracing_elements():
             if isinstance(el, IdealLens):
-                n2 = el.n2 if el.n2 is not None else self.n0
+                n2 = el.n2.on_device(device, dtype) if el.n2 is not None else n0
                 steps.append(TraceStep(compile_surface(el.front, device, dtype), "ideal",
                                        n1_fn=n_before, n2_fn=n2, D=el.D, pos_host=ph(el.front)))
                 n_before = n2
             elif isinstance(el, Lens):
-                n2 = el.n2 if el.n2 is not None else self.n0
+                n2 = el.n2.on_device(device, dtype) if el.n2 is not None else n0
+                n = el.n.on_device(device, dtype)
                 steps.append(TraceStep(compile_surface(el.front, device, dtype), "refract",
-                                       n1_fn=n_before, n2_fn=el.n, pos_host=ph(el.front)))
+                                       n1_fn=n_before, n2_fn=n, pos_host=ph(el.front)))
                 steps.append(TraceStep(compile_surface(el.back, device, dtype), "refract",
-                                       n1_fn=el.n, n2_fn=n2, pos_host=ph(el.back)))
+                                       n1_fn=n, n2_fn=n2, pos_host=ph(el.back)))
                 n_before = n2
             elif isinstance(el, Filter):
                 steps.append(TraceStep(compile_surface(el.front, device, dtype), "filter",
-                                       spectrum_fn=el.spectrum, pos_host=ph(el.front)))
+                                       spectrum_fn=el.spectrum.on_device(device, dtype),
+                                       pos_host=ph(el.front)))
             elif isinstance(el, Aperture):
                 kind = "ring" if isinstance(el.front, RingSurface) \
                     else ("slit" if isinstance(el.front, SlitSurface) else "")
@@ -323,16 +326,17 @@ class Raytracer(Group):
             kept = self._compiled = (elements, key, steps, RunPlans(steps))
         return kept[2], kept[3]
 
-    def _make_source_fn(self, N: int):
+    def _make_source_fn(self, N: int, device=None):
         """Ray generation for all sources with static per-source counts:
-        ``gen -> (p, s, pols, w, wl)`` on the generator's device."""
-        sources = self.ray_sources
-        N_list = [int(n) for n in self.rays.N_list]
-        no_pol = self.no_pol
+        ``gen -> (p, s, pols, w, wl)`` on ``device`` (default: the
+        raytracer's), whose generator ``gen`` is. The sources' tables and
+        constants are made on the device here, once."""
+        device = self.device if device is None else torch.device(device)
+        samplers = [src.ray_sampler(int(Ni), device, no_pol=self.no_pol, power=src.power)
+                    for src, Ni in zip(self.ray_sources, self.rays.N_list) if int(Ni)]
 
         def source_fn(gen):
-            parts = [src.create_rays(gen, Ni, no_pol=no_pol, power=src.power)
-                     for src, Ni in zip(sources, N_list) if Ni]
+            parts = [sample(gen) for sample in samplers]
             if len(parts) == 1:
                 return parts[0]
             return tuple(torch.cat(xs, dim=0) for xs in zip(*parts))
@@ -683,7 +687,7 @@ class Raytracer(Group):
             from ..parallel.checkpoint import batch_generator
             self._dev_sections = None       # the stored trace has served; free its device memory
 
-            def build(nrays):
+            def build(nrays, calls):
                 # pos goes INTO the config so make_fused_render_multi moves
                 # the detector before capturing each sink: one detector at
                 # several positions must bind each position, not the last
@@ -695,9 +699,11 @@ class Raytracer(Group):
                                 Ny=DIm_res[j]._data.shape[0],
                                 Nx=DIm_res[j]._data.shape[1])
                            for j in range(len(pos))]
-                return make_fused_render_multi(self, nrays, configs, device=self.device)[0]
+                return make_fused_render_multi(self, nrays, configs, device=self.device,
+                                               _batches=calls)[0]
 
-            step_fn = build(rays_step)
+            # the fused batches that share one step: all but a ragged last
+            step_fn = build(rays_step, iterations - 1 - int(N - iterations * rays_step != 0))
             base_seed = 0x17E7 + self._seed_counter
             acc = [torch.zeros(DIm._data.shape, dtype=torch.float64, device=self.device)
                    for DIm in DIm_res]
@@ -707,7 +713,7 @@ class Raytracer(Group):
                     ni = rays_step if i < iterations - 1 \
                         else rays_step + int(N - iterations * rays_step)
                     if ni != rays_step:
-                        step_fn = build(ni)
+                        step_fn = build(ni, 1)
                     imgs, infos = step_fn(batch_generator(base_seed, i, self.device))
                     for j in range(len(pos)):
                         acc[j] += imgs[j].to(torch.float64) * (ni / N)
@@ -783,14 +789,15 @@ class Raytracer(Group):
             step, _ = make_sharded_render(self, batch, mesh=mesh, detector_index=detector_index,
                                           extent=tuple(img.extent), Nx=Nx, Ny=Ny,
                                           axis_name=global_options.mesh_axis_name,
-                                          projection_method=projection_method)
+                                          projection_method=projection_method,
+                                          _batches=n_batches)
             group, rank = step.group, step.rank
         else:
             render, _ = make_fused_render_multi(
                 self, batch, [dict(detector_index=detector_index,
                                    extent=tuple(img.extent),
                                    projection_method=projection_method,
-                                   Nx=Nx, Ny=Ny)], device=self.device)
+                                   Nx=Nx, Ny=Ny)], device=self.device, _batches=n_batches)
             group, rank = None, 0
 
             def step(batch_index, seed):

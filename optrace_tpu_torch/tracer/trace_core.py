@@ -511,6 +511,7 @@ class RunPlans:
     def __init__(self, steps):
         self.steps = steps
         self._plans = {}
+        self._frames = {}
 
     def get(self, steps, idxs, chain, outline64, med_idx) -> PreparedRun:
         if steps is not self.steps:
@@ -521,6 +522,20 @@ class RunPlans:
         if plan is None:
             plan = self._plans[key] = PreparedRun(_run_steps(steps, idxs, chain, outline64), med_idx)
         return plan
+
+    def frame(self, idx, chain, dtype, device):
+        """The frame shift (None where it is 0) and the applied origin of
+        the unrolled step ``idx`` as ``dtype`` tensors on ``device``: made
+        at the first bundle and kept, so that a later bundle copies nothing
+        from the host (keyed by the chain's values as well)."""
+        _, delta, origin = chain[idx]
+        key = (idx, dtype, str(device), delta.tobytes(), origin.tobytes())
+        got = self._frames.get(key)
+        if got is None:
+            got = self._frames[key] = (
+                torch.as_tensor(delta, dtype=dtype, device=device) if np.any(delta) else None,
+                torch.as_tensor(origin, dtype=dtype, device=device))
+        return got
 
     def __len__(self):
         return len(self._plans)
@@ -652,9 +667,10 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         info = torch.zeros((N_INFOS,), dtype=torch.int32, device=dev)
         hw = w > 0.0
 
-        pos_h, delta_applied, origin = chain[idx]
-        if np.any(delta_applied):
-            p = p - torch.as_tensor(delta_applied, dtype=p.dtype, device=dev)
+        _, _, origin = chain[idx]
+        delta_t, origin_t = plans.frame(idx, chain, p.dtype, dev)
+        if delta_t is not None:
+            p = p - delta_t
         # residuals of the position parameters (exactly 0 in the forward
         # pass): keep d(image)/d(surface position) flowing although the
         # frame shift itself is a constant
@@ -705,7 +721,7 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
             # sections and sinks see absolute coordinates (single rounding
             # at output, does not feed back into the trace state); rebase
             # from the APPLIED origin, the frame p actually lives in
-            off = torch.as_tensor(origin, dtype=p.dtype, device=dev)
+            off = origin_t
             if res is not None:
                 off = off + res
             p_abs = p + off

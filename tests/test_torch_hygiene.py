@@ -36,7 +36,8 @@ for _new in ("ops/cuda_trace.py", "csrc/trace_step.cuh", "csrc/conic_step.cu", "
              "plots/__init__.py", "plots/init.py", "plots/image_plots.py", "plots/spectrum_plots.py",
              "plots/chromaticity_plots.py", "plots/misc_plots.py", "gui/__init__.py",
              "gui/trace_gui.py", "gui/scene_plotting.py", "gui/interactors.py",
-             "gui/property_browser.py", "gui/command_window.py"):
+             "gui/property_browser.py", "gui/command_window.py", "parallel/graph.py",
+             "csrc/bin_xyzw.cu"):
     assert ROOT / "optrace_tpu_torch" / _new in PORT_FILES, _new
 
 
