@@ -13,7 +13,10 @@ a refusal after a scene change, ``render_huge`` of 4, 8 and 20 batches with
 its step captured against the same batches eager), runs the stored trace, traces
 an asphere stack and carries its stored trace through ``detector_image`` to
 an sRGB image, bins two hot pixels on a spread background and a ragged ray
-count through ``RenderImage.render``, drives the planar step kinds (tilted
+count through ``RenderImage.render``, holds the binning kernel on the edges
+of its tile schedule (every ray in one pixel, no live ray, a 189² image, a
+pixel count that is no multiple of the tile) and times it beside f32 and
+int64 ``index_add_``, drives the planar step kinds (tilted
 plate, ring, rectangle, slit) in one run, measures the render with
 ``cuda_fuse_planar`` off and on, probes the single-step kernel, reads a
 stored trace's detector and source images and spectra from the sections kept
@@ -66,6 +69,8 @@ RUN_OPS_PER_RAY_STEP = {"conic": 150, "flat": 150, "tilted": 150,
                         "absorb:slit": 60}
 STEP_OPS_PER_RAY = 150          # the single-step kernel: one conic refraction
 BIN_OPS_PER_RAY = 30
+# the binning kernel's launches in one call (csrc/bin_xyzw.cu), as the profiler names them
+BIN_LAUNCHES = ("Memset", "bin_xyzw_count", "bin_xyzw_plan", "bin_xyzw_scatter", "bin_xyzw_sum")
 # the run-to-run spread of the host-bound render (PERF.md §5: 8.8–19.6 ms a
 # batch across calls); within one call the legs off/on/on/off show their own
 FLAG_MIN_GAIN = 0.10            # a default changes only for a gain beyond this share
@@ -501,15 +506,18 @@ def stress_run_call(c, label, spread, tilt, seed, poison=False):
 def check_binning(px, py, w, wl, extent, label, Nx=NX, Ny=NY):
     """Binning kernel against its plain version (``bin_xyzw_fixed``: the same
     fixed-point sums, bit for bit), twice on the same input (bit for bit),
-    against the same sums taken in f64, and the library yardstick (one f32
-    index_add_ on precomputed keys and values, which leaves out the index,
-    the mask and the observer lookup that the kernel does). ``ms`` is the
-    device time of the kernel's three launches and its scratch's memset
-    alone a call, ``library_ms``
-    the yardstick's, both by the profiler."""
+    against the same sums taken in f64, and two library yardsticks on
+    precomputed keys and values, which leave out the index, the mask and the
+    observer lookup that the kernel does: one f32 index_add_ (``library_ms``;
+    its sums depend on the order of the atomics) and one int64 index_add_ of
+    the fixed-point integers (``library_int64_ms``: the same order-free
+    function as the kernel). ``ms`` is the device time of all the kernel's
+    launches and its memset in one call, ``ms_by_launch`` each of them, the
+    yardsticks' by the profiler too."""
     import torch
-    from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
-    from optrace_tpu_torch.ops.binning import binning_indices_2d, bin_xyzw_fixed, bin_xyzw
+    from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda, scratch_layout
+    from optrace_tpu_torch.ops.binning import (binning_indices_2d, bin_xyzw_fixed, bin_xyzw,
+                                               fixed_point_exponent, pow2)
     from optrace_tpu_torch.color.observers import x_observer, y_observer, z_observer
 
     img_k = bin_xyzw_cuda(px, py, w, wl, Nx, Ny, extent)
@@ -535,32 +543,36 @@ def check_binning(px, py, w, wl, extent, label, Nx=NX, Ny=NY):
     img_64 = img_64.view(Ny, Nx, 4)
     err_k64 = float((img_k.double() - img_64).abs().max())
     err_f32_64 = float((bin_xyzw(px, py, w, wl, Nx, Ny, extent).double() - img_64).abs().max())
-    rays_in_a_pixel = int(torch.bincount(keys[wm != 0]).max())
+    rays_in_a_pixel = int(torch.bincount(keys[wm != 0]).max()) if bool((wm != 0).any()) else 0
     tol = TOL_BIN * max(scale, 1.0)
     # the f32 index_add_ version: one f32 rounding a ray in the fullest pixel
     tol_plain = max(TOL_BIN, TOL_BIN_PER_RAY * rays_in_a_pixel) * max(scale, 1.0)
     assert torch.isfinite(img_k).all()
     assert err_k64 <= tol, f"{label}: binning error {err_k64} against f64 sums (limit {tol})"
     assert err_f32_64 <= tol_plain, f"{label}: f32 version {err_f32_64} off the f64 sums (limit {tol_plain})"
-    # the kernel's three launches and the memset of its scratch
+    # the kernel's four launches and the memset of its tile counts
     ms = device_kernel_ms(lambda: bin_xyzw_cuda(px, py, w, wl, Nx, Ny, extent),
                           ("bin_xyzw_", "Memset"), per_call=True)
     parts = {k: device_kernel_ms(lambda: bin_xyzw_cuda(px, py, w, wl, Nx, Ny, extent), k)
-             for k in ("Memset", "bin_xyzw_wmax", "bin_xyzw_kernel", "bin_xyzw_finalize")}
+             for k in BIN_LAUNCHES}
     ms_events = cuda_ms(lambda: bin_xyzw_cuda(px, py, w, wl, Nx, Ny, extent))
     plain_ms = cuda_ms(lambda: bin_xyzw_fixed(px, py, w, wl, Nx, Ny, extent))
 
-    # the yardstick's own kernel time, as the kernel's: no launch gap in either
+    # the yardsticks' own kernel times, as the kernel's: no launch gap in either
     out = torch.zeros((Ny * Nx, 4), dtype=torch.float32, device=px.device)
     library_ms = device_kernel_ms(lambda: out.index_add_(0, keys, vals), "ndex")
     library_ms_events = cuda_ms(lambda: out.index_add_(0, keys, vals))
+    q = torch.round(vals.double() * pow2(fixed_point_exponent(w))).to(torch.int64)
+    out64 = torch.zeros((Ny * Nx, 4), dtype=torch.int64, device=px.device)
+    library_int64_ms = device_kernel_ms(lambda: out64.index_add_(0, keys, q), "ndex")
+    del q, out64
 
     N = px.shape[0]
     # the function's own bytes: the rays in and the image out. The kernel's
-    # int64 scratch image is its working memory, not the function's, and is
-    # reported apart (scratch_bytes)
+    # scratch (the sorted records, the plan and the split tiles' sums) is its
+    # working memory, not the function's, and is reported apart (scratch_bytes)
     nbytes = 16 * N + 16 * Nx * Ny
-    scratch_bytes = 32 * Nx * Ny
+    scratch_bytes = scratch_layout(N, Nx, Ny)["total"]
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = N * BIN_OPS_PER_RAY / F32_OPS_PER_S * 1e3
     return dict(name=label, N=N, image=[Ny, Nx, 4], max_abs_err=err, bit_equal=True,
@@ -569,7 +581,8 @@ def check_binning(px, py, w, wl, extent, label, Nx=NX, Ny=NY):
                 rays_in_fullest_pixel=rays_in_a_pixel, tolerance_vs_f64=tol, tolerance_plain=tol_plain,
                 rays_binned=int((wm != 0).sum()), ms=ms, ms_by_launch=parts,
                 ms_between_events=ms_events, plain_ms=plain_ms, library_ms=library_ms,
-                library_ms_between_events=library_ms_events, bytes=nbytes,
+                library_ms_between_events=library_ms_events, library_int64_ms=library_int64_ms,
+                bytes=nbytes,
                 scratch_bytes=scratch_bytes,
                 bound_ms=max(bound_bytes_ms, bound_ops_ms),
                 bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations")
@@ -675,7 +688,8 @@ def device_kernel_ms(fn, name, calls=10, per_call=False):
             if ev.device_type == DeviceType.CUDA and any(n in ev.key for n in names):
                 us += ev.self_device_time_total
                 n += ev.count
-        if n > 0:
+        # per call, a trace that lost some launches' events would read low
+        if n > 0 and (not per_call or n % calls == 0):
             break
     assert n > 0, f"the profiler recorded no kernel named {name}"
     return us / 1e3 / (calls if per_call else n)
@@ -2104,9 +2118,35 @@ def main():
         del hits, rimg_b, rec
     assert bin_paths["bin_xyzw@two_hot"]["rays_in_fullest_pixel"] > N_RAYS // 5
     assert bin_paths["bin_xyzw@tail"]["N"] == n_tail and n_tail % 32 and n_tail % 128
-    emit(dict(phase="binning_inputs", gpu=smi, entry="RenderImage.render",
-              inputs=list(bin_paths.values())))
     del xs, ys, ws, wls, pick
+    # edges of the kernel's tile schedule at full width, the kernel itself
+    # against its plain version: every ray in one pixel (one tile of
+    # ⌈N / CHUNK⌉ work items), no live ray (beyond the extent or of weight
+    # 0), a 189² image (18 tiles, about 23 rays a pixel), and 1000 × 999
+    # pixels, no multiple of the tile, with rays on the extent's inclusive
+    # edges and so on the last pixel
+    from optrace_tpu_torch.ops.cuda_binning import TILE
+    g = ot.make_generator(23)
+    u0, u1, u2, u3 = (torch.rand(N_RAYS, generator=g, device=dev) for _ in range(4))
+    wl_e = 380.0 + 400.0 * u3
+    sx, sy = (u0 * 2 - 1) * 1.1 * ext_b[1], (u1 * 2 - 1) * 1.1 * ext_b[3]
+    spot = torch.full((N_RAYS,), 3.2101, device=dev)
+    beyond = u0 < 0.5
+    ex, ey = sx.clone(), sy.clone()
+    ex[:2000], ey[1000:3000] = ext_b[1], ext_b[3]
+    edge_inputs = {
+        "bin_xyzw@one_pixel": (spot, -2.5 * spot, u2, wl_e, NX, NY),
+        "bin_xyzw@no_live": (torch.where(beyond, 1.01 * ext_b[1] + u1, sx), sy,
+                             torch.where(beyond, u2, 0.0), wl_e, NX, NY),
+        "bin_xyzw@189": (sx, sy, u2, wl_e, 189, 189),
+        "bin_xyzw@ragged": (ex, ey, u2, wl_e, 1000, 999)}
+    edge = {label: check_binning(*a[:4], ext_b, label, Nx=a[4], Ny=a[5]) for label, a in edge_inputs.items()}
+    assert edge["bin_xyzw@one_pixel"]["rays_in_fullest_pixel"] == N_RAYS
+    assert edge["bin_xyzw@no_live"]["rays_binned"] == 0 and edge["bin_xyzw@no_live"]["image_max"] == 0.0
+    assert 1000 * 999 % TILE != 0 and edge["bin_xyzw@ragged"]["rays_binned"] > N_RAYS // 2
+    emit(dict(phase="binning_inputs", gpu=smi, entry="RenderImage.render",
+              inputs=list(bin_paths.values()), tile_schedule_edges=list(edge.values())))
+    del u0, u1, u2, u3, wl_e, sx, sy, spot, beyond, ex, ey, edge_inputs
 
     # ---- 3. fused render ------------------------------------------------
     RT = double_gauss_scene(ot, no_pol=True)
@@ -2845,8 +2885,9 @@ def main():
             launches=n_launch, max_abs_err=max(r["max_abs_err"], r.get("max_abs_err_sections", 0.0)),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
-        if "scratch_bytes" in r:
-            kernels[-1]["scratch_bytes"] = r["scratch_bytes"]
+        for key in ("library_int64_ms", "scratch_bytes", "ms_by_launch"):
+            if key in r:
+                kernels[-1][key] = r[key]
     emit(dict(kernels=kernels))
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     print(smi, flush=True)

@@ -2,7 +2,7 @@
 """Where a batch of the port's fused render spends its time on the GPU.
 
     python3 tools/profile_port.py [--batches 4] [--rays 1000000] [--fuse-planar] [--out profile.json]
-    python3 tools/profile_port.py --kernel-times [--root DIR] [--rays 1000000]
+    python3 tools/profile_port.py --kernel-times [--root DIR] [--binning-only] [--rays 1000000]
     python3 tools/profile_port.py --iterative [--batches 4] [--rays 1000000]
     python3 tools/profile_port.py --design [--batches 4] [--rays 1000000]
 
@@ -20,11 +20,16 @@ launches between one pair of CUDA events (``ms``; for a kernel shorter than
 the host's work for one launch this reads the host), and the host's own time
 to enqueue one launch (``host_ms``). The single-step kernel on its probe.
 The binning kernel on spread rays, clustered rays, two hot pixels among
-spread rays, the render's input and ``detector_image``'s hits, beside
-``index_add_`` on precomputed keys and values. ``--root DIR`` takes the package and ``chip_smoke.py`` from another
-directory, such as an unpacked earlier commit: to compare two trees on one
-card, run this mode for each in turn (earlier, this, this, earlier), one
-after the other on the same machine.
+spread rays, the render's input and ``detector_image``'s hits: the device
+time of a whole call (all its launches and memsets, ``ms_device``) and of
+each launch by name (``ms_by_launch``), beside two ``index_add_`` calls on
+precomputed keys and values: f32 values (``index_add_ms_device``) and the
+fixed-point int64 integers of the kernel's plain version, the same
+order-free function (``index_add_int64_ms_device``). ``--binning-only``
+times the binning kernel alone. ``--root DIR`` takes the package and
+``chip_smoke.py`` from another directory, such as an unpacked earlier commit:
+to compare two trees on one card, run this mode for each in turn (earlier,
+this, this, earlier), one after the other on the same machine.
 
 ``--iterative`` profiles ``Raytracer.iterative_render`` of the double Gauss
 with two detector positions over ``--batches`` batches of ``--rays`` rays:
@@ -112,7 +117,7 @@ def kernel_times(args, smi):
     import chip_smoke as cs
     from optrace_tpu_torch.ops.cuda_run import conic_run
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
-    from optrace_tpu_torch.ops.binning import binning_indices_2d
+    from optrace_tpu_torch.ops.binning import binning_indices_2d, fixed_point_exponent, pow2
     from optrace_tpu_torch.color.observers import x_observer, y_observer, z_observer
 
     def run(c):
@@ -143,7 +148,7 @@ def kernel_times(args, smi):
     scenes = (("stack56", cs.synthetic_stack_scene, False), ("double_gauss", cs.double_gauss_scene, False),
               ("asphere20", cs.asphere_scene, False), ("planar61", cs.planar_stack_scene, True),
               ("dg15", cs.double_gauss_scene, True))
-    for scene_name, scene, fuse in scenes:
+    for scene_name, scene, fuse in ([] if args.binning_only else scenes):
         for label, no_pol, store in (("nopol,nostore", True, False), ("nopol,store", True, True),
                                      ("pol,store", False, True)):
             go.cuda_fuse_planar = fuse
@@ -159,8 +164,10 @@ def kernel_times(args, smi):
             del calls
             torch.cuda.empty_cache()
 
-    step = cs.check_conic_step()
-    kernel_3 = dict(ms_device=step["ms"], ms=step["ms_between_events"], max_abs_err=step["max_abs_err"])
+    kernel_3 = None
+    if not args.binning_only:
+        step = cs.check_conic_step()
+        kernel_3 = dict(ms_device=step["ms"], ms=step["ms_between_events"], max_abs_err=step["max_abs_err"])
 
     inputs = binning_inputs(args.rays)
     kernel_2 = []
@@ -169,14 +176,28 @@ def kernel_times(args, smi):
         keys = yi * Nx + xi
         vals = torch.stack([x_observer(wl) * wm, y_observer(wl) * wm, z_observer(wl) * wm, wm], dim=-1)
         out = torch.zeros((Ny * Nx, 4), dtype=torch.float32, device=px.device)
+        q = torch.round(vals.double() * pow2(fixed_point_exponent(w))).to(torch.int64)
+        out64 = torch.zeros((Ny * Nx, 4), dtype=torch.int64, device=px.device)
+
+        def call():
+            return bin_xyzw_cuda(px, py, w, wl, Nx, Ny, extent)
+        # the launches by name: those of this tree's kernel, whichever tree it is
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = sorted({ev.key for ev in prof.key_averages()
+                        if ev.device_type == torch.autograd.DeviceType.CUDA
+                        and ("bin_xyzw_" in ev.key or "Memset" in ev.key)})
         kernel_2.append(dict(
             input=name, N=int(px.shape[0]), rays_in_fullest_pixel=int(torch.bincount(keys[wm != 0]).max()),
-            ms_device=cs.device_kernel_ms(lambda: bin_xyzw_cuda(px, py, w, wl, Nx, Ny, extent),
-                                          "bin_xyzw_kernel", calls=20),
+            ms_device=cs.device_kernel_ms(call, ("bin_xyzw_", "Memset"), calls=20, per_call=True),
+            ms_by_launch={k[:60]: cs.device_kernel_ms(call, k, calls=20) for k in names},
             index_add_ms_device=cs.device_kernel_ms(lambda: out.index_add_(0, keys, vals),
                                                     "ndex", calls=20),
+            index_add_int64_ms_device=cs.device_kernel_ms(lambda: out64.index_add_(0, keys, q),
+                                                          "ndex", calls=20),
             index_add_ms=cs.cuda_ms(lambda: out.index_add_(0, keys, vals))))
-        del keys, vals, out
+        del keys, vals, out, q, out64
 
     res = dict(gpu=smi, root=str(pathlib.Path(args.root).resolve()), rays=args.rays,
                launches_between_events=20, kernel_1=rows, kernel_2=kernel_2,
@@ -357,7 +378,9 @@ def main():
     ap.add_argument("--fuse-planar", action="store_true",
                     help="trace with global_options.cuda_fuse_planar set")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="time the run kernel alone, 20 launches between one pair of events")
+                    help="time each kernel alone on recorded calls")
+    ap.add_argument("--binning-only", action="store_true",
+                    help="with --kernel-times: time the binning kernel alone")
     ap.add_argument("--iterative", action="store_true",
                     help="profile Raytracer.iterative_render over --batches batches of --rays rays")
     ap.add_argument("--design", action="store_true",
