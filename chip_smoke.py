@@ -10,7 +10,13 @@ objective (Nikkor-Wakamiya 100 mm f/1.4) with the fused streaming render at
 captured as a CUDA graph against the eager batch bit for bit (image, INFOS,
 generator advance, launches, a replay under the sync debug mode's "error",
 a refusal after a scene change, ``render_huge`` of 4, 8 and 20 batches with
-its step captured against the same batches eager), runs the stored trace, traces
+its step captured against the same batches eager), runs the stored trace of
+the double Gauss and of the 57-surface stack (its sections stay on the card:
+``trace`` with no host read, then the first full read of ``RT.rays``; device
+busy ms and idle share; no host array made by the outputs; a cache hit
+against a miss and against a fresh raytracer), holds spectra, focus searches
+and the design image bit for bit over two calls and over the same rays in a
+permuted order (phase ``repeatable``), traces
 an asphere stack and carries its stored trace through ``detector_image`` to
 an sRGB image, bins two hot pixels on a spread background and a ragged ray
 count through ``RenderImage.render``, holds the binning kernel on the edges
@@ -678,20 +684,26 @@ def device_kernel_ms(fn, name, calls=10, per_call=False):
     names = (name,) if isinstance(name, str) else tuple(name)
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):        # a trace now and then comes back without its device events
+    for attempt in range(5):        # a trace now and then comes back without its device events
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         us = n = 0
         for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA and any(n in ev.key for n in names):
+            if ev.device_type == DeviceType.CUDA and any(k in ev.key for k in names):
                 us += ev.self_device_time_total
                 n += ev.count
         # per call, a trace that lost some launches' events would read low
         if n > 0 and (not per_call or n % calls == 0):
             break
-    assert n > 0, f"the profiler recorded no kernel named {name}"
+        time.sleep(1.0)
+    if n == 0:
+        # every trace lost the device events: time one call between CUDA
+        # events instead (the host's gaps between launches included)
+        print(f"chip_smoke: the profiler recorded no kernel named {name} in 5 traces; "
+              "timed between CUDA events", file=sys.stderr)
+        return cuda_ms(fn, reps=calls)
     return us / 1e3 / (calls if per_call else n)
 
 
@@ -701,18 +713,22 @@ def device_launches(fn):
 
 
 def device_busy(fn):
-    """(kernel launches, device-busy ms) during fn(), by torch.profiler: the
-    sum of the kernels' own device times."""
+    """(kernel launches, device-busy ms, wall ms) during fn(), by
+    torch.profiler: the sum of the kernels' own device times, and the host
+    clock's time of the same profiled call up to the device's end."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     from torch.autograd import DeviceType
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
     n = sum(ev.count for ev in evs)
     assert n > 0, "the profiler recorded no kernel on the device"
-    return int(n), sum(ev.self_device_time_total for ev in evs) / 1e3
+    return int(n), sum(ev.self_device_time_total for ev in evs) / 1e3, wall_ms
 
 
 def run_partition(ot, RT, sink_masks=()):
@@ -938,11 +954,14 @@ def focus_phase(ot, smi, n=N_RAYS, subset=FOCUS_SUBSET):
     results = {}
     for method in RT.focus_search_methods:
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res, fd = RT.focus_search(method, z_start=z_det)
         torch.cuda.synchronize()
         results[method] = dict(z=res.x, cost=res.fun, seconds=time.perf_counter() - t0,
-                               rays=fd["N"], bounds=fd["bounds"])
+                               rays=fd["N"], bounds=fd["bounds"],
+                               peak_device_bytes=int(torch.cuda.max_memory_allocated() - base))
     assert conic_run.launches == n_trace and bin_xyzw_cuda.launches == 0
     bounds = results["RMS Spot Size"]["bounds"]
     z_rms = results["RMS Spot Size"]["z"]
@@ -974,11 +993,12 @@ def focus_phase(ot, smi, n=N_RAYS, subset=FOCUS_SUBSET):
     assert bin_xyzw_cuda.launches == 1 and len(rec.calls) == 1
     px, py, w_b, wl_b, Nx_p, Ny_p, ext_p = rec.calls[0]
     bin_psf = check_binning(px, py, w_b, wl_b, ext_p, "bin_xyzw@convolve_psf", Nx=Nx_p, Ny=Ny_p)
-    emit(dict(phase="focus", gpu=smi, scene="double_gauss", N=n, trace_seconds_with_host_copy=t_trace,
+    emit(dict(phase="focus", gpu=smi, scene="double_gauss", N=n, trace_seconds=t_trace,
               methods=results, tma_image_position=z_tma, rms_focus_minus_tma=z_rms - z_tma,
               detector_z=z_det, cost_sweep_card_vs_cpu_max_rel=sweep,
               cost_sweep_subset=dict(rays=int(q0.shape[0]), planes=FOCUS_PLANES),
               tolerance_rel=TOL_FOCUS_COST, chunk_planes_at_N=focus.plane_chunk(fd["N"]),
+              chunk_bytes=focus.CHUNK_BYTES,
               psf_detector_image_seconds=t_image, psf_shape=list(psf.shape), psf_extent=list(psf.extent),
               launches=dict(conic_run=n_trace, bin_xyzw_focus_search=0, bin_xyzw_psf=1)))
     return ({"conic_run[nopol,store]@focus": n_trace, "bin_xyzw@convolve_psf": 1},
@@ -1226,7 +1246,7 @@ def generic_phase(ot, smi, n=N_RAYS):
         with torch.no_grad():
             return trace_bundle(steps, RT.n0, outline, *bundle, True)
     step_ms, whole_ms = cuda_ms(step_only, reps=3), cuda_ms(whole, reps=3)
-    (step_launches, step_busy), (whole_launches, whole_busy) = device_busy(step_only), device_busy(whole)
+    (step_launches, step_busy, _), (whole_launches, whole_busy, _) = device_busy(step_only), device_busy(whole)
     del bundle
 
     # one fused-render batch
@@ -1260,7 +1280,7 @@ def generic_phase(ot, smi, n=N_RAYS):
     torch.cuda.empty_cache()
     cmp_dg = card_vs_cpu(ot, RT, n, seed=24)
     out["data_double_gauss"] = dict(
-        runs=runs, trace_seconds_with_host_copy=t_trace, detector_image_seconds=t_image,
+        runs=runs, trace_seconds=t_trace, detector_image_seconds=t_image,
         render_ms_per_batch=t_render * 1e3, render_power=power_render, image_power=img.power(),
         ill_conditioned_by_section=ill,
         generic_step=dict(device_launches=step_launches, ms=step_ms, device_busy_ms=step_busy),
@@ -1299,9 +1319,9 @@ def generic_phase(ot, smi, n=N_RAYS):
     def cos_step():
         with torch.no_grad():
             return trace_bundle(steps[:1], RT.n0, outline, *bundle, True, store_sections=False)
-    cos_ms, (cos_launches, cos_busy) = cuda_ms(cos_step, reps=3), device_busy(cos_step)
+    cos_ms, (cos_launches, cos_busy, _) = cuda_ms(cos_step, reps=3), device_busy(cos_step)
     del bundle
-    out["cosine_lens"] = dict(trace_seconds_with_host_copy=t_trace, detector_image_seconds=t_image,
+    out["cosine_lens"] = dict(trace_seconds=t_trace, detector_image_seconds=t_image,
                               image_power=img.power(), ill_conditioned_by_section=ill,
                               generic_step=dict(device_launches=cos_launches, ms=cos_ms,
                                                 device_busy_ms=cos_busy),
@@ -1461,7 +1481,7 @@ def zmx_phase(ot, smi, n=N_RAYS):
     del calls
     cmp_ = card_vs_cpu(ot, RT, n, seed=33)
     emit(dict(phase="zmx", gpu=smi, N=n, runs=runs, load_seconds=t_load,
-              trace_seconds_with_host_copy=t_trace, power_before_detector=power,
+              trace_seconds=t_trace, power_before_detector=power,
               loaded_vs_by_hand_max_abs=d_hand, card_vs_cpu=cmp_, launches=launches))
     return launches, rows
 
@@ -1478,6 +1498,13 @@ def _same_bits(a, b) -> bool:
         return False
     view = {torch.float32: torch.int32, torch.float64: torch.int64}.get(a.dtype)
     return bool(torch.equal(a.view(view), b.view(view)) if view else torch.equal(a, b))
+
+
+def _differing_bits(a, b) -> int:
+    """Count of the elements of two float tensors of one shape whose bits differ."""
+    import torch
+    view = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return int((a.contiguous().view(view) != b.contiguous().view(view)).sum())
 
 
 def _launch_calls(prof) -> int:
@@ -1964,6 +1991,247 @@ def gui_phase(ot, smi, n=N_RAYS, n_command=GUI_COMMAND_RAYS):
             {"bin_xyzw@gui": bin_gui})
 
 
+# ----------------------------------------------------------------------
+# the stored trace: kept on the card, read on the host only when asked; the
+# trace cache; sums that do not depend on the order of the rays
+
+TRACE_SCENES = (("double_gauss", False), ("double_gauss", True), ("stack57", True))
+SOFT_PIXELS = 189                       # the design image's side (tracer/diff.py's default)
+
+
+def eager_host_arrays(rays):
+    """The host arrays as the trace made them before its sections stayed on
+    the card: ``.cpu()`` of the device tensors, the positions and indices
+    in f64, ``s0`` in f32 arithmetic on the host from the f32 positions."""
+    import numpy as np
+    d = rays._dev
+    p = d["p"].cpu().numpy()
+    s0 = p[:, 1] - p[:, 0]
+    norm = np.linalg.norm(s0, axis=-1, keepdims=True)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        s0 = np.where(norm > 0, s0 / norm, s0)
+    pol = np.broadcast_to(np.nan, p.shape) if d["pol"] is None else d["pol"].cpu().numpy()
+    return dict(p_list=p.astype(np.float64), s0_list=s0.astype(np.float64),
+                n_list=d["n"].cpu().numpy().astype(np.float64), pol_list=pol,
+                w_list=d["w"].cpu().numpy(), wl_list=d["wl"].cpu().numpy())
+
+
+def trace_phase(ot, smi, dg_runs, n=N_RAYS):
+    """``Raytracer.trace`` at 10⁶ rays of the double Gauss (polarization
+    and none) and of the 57-surface stack (bench.py's stored-trace scene
+    when its fixtures are absent, ``build_synthetic``): the seconds of
+    ``trace`` with no host read (a cache miss, then a hit), then of the
+    first full read of ``RT.rays``; device ms of source + trace, device-busy
+    ms and idle share of the eager trace, its peak device memory. On the
+    double Gauss: no host array made through trace → detector_image →
+    detector_spectrum → source_image → focus_search; scene A, scene B,
+    scene A (a hit) beside the miss, the hit's sections against a fresh
+    raytracer's at the same seed counter; the arrays made at the first read
+    against an eager ``.cpu()`` conversion of the same tensors."""
+    import numpy as np
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.tracer.trace_core import trace_bundle
+    launches, out = {}, []
+    scenes = {"double_gauss": double_gauss_scene, "stack57": synthetic_stack_scene}
+    for name, no_pol in TRACE_SCENES:
+        scene = scenes[name]
+        RTt = scene(ot, no_pol=no_pol)
+        n_surf = len(RTt.tracing_surfaces)
+        RTt.trace(20000)                        # warm-up at a small size (its own cache entry)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        RTt.trace(n)                            # a miss: steps, runs and samplers of N are built
+        t_miss = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        stored_runs = run_partition(ot, RTt)
+        if name == "double_gauss":
+            assert stored_runs == dg_runs, stored_runs
+        assert conic_run.variant_launches == {(not no_pol, True): len(stored_runs)}, conic_run.variant_launches
+        label = ("conic_run[nopol,store]" if no_pol else "conic_run[pol,store]") \
+            + ("" if name == "double_gauss" else "@stack56")
+        launches[label] = conic_run.launches
+        rays = RTt.rays
+        assert rays._host == {} and rays.N == n and rays.Nt == n_surf + 2
+        kept_bytes = sum(t.numel() * t.element_size() for t in rays._dev.values() if t is not None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        RTt.trace(n)                            # a hit
+        t_hit = time.perf_counter() - t0
+        n_kernels, busy_ms, busy_wall_ms = device_busy(lambda: RTt.trace(n))
+        steps = RTt._build_steps()
+        src = RTt._make_source_fn(n)
+        outl = tuple(float(v) for v in RTt.outline)
+
+        def dev_trace():
+            with torch.no_grad():
+                return trace_bundle(steps, RTt.n0, outl, *src(ot.make_generator(5)), no_pol)
+        dev_ms = cuda_ms(dev_trace, reps=3, warmup=1)
+        del steps, src
+        row = dict(scene=name, no_pol=no_pol, N=n, surfaces=n_surf, sections=[n, n_surf + 2, 3],
+                   trace_seconds_miss=t_miss, trace_seconds_hit=t_hit, device_ms=dev_ms,
+                   ms_per_surface_per_mray=dev_ms / n_surf / (n / 1e6),
+                   device_busy_ms=busy_ms, device_kernels=n_kernels,
+                   device_busy_wall_ms=busy_wall_ms, idle_share=1.0 - busy_ms / busy_wall_ms,
+                   peak_device_bytes=int(peak), kept_section_bytes=int(kept_bytes))
+        if name == "double_gauss":
+            # the outputs of a stored trace read the card: no host array
+            z_det = float(RTt.detectors[0].pos[2])
+            t0 = time.perf_counter()
+            RTt.detector_image()
+            RTt.detector_spectrum()
+            RTt.source_image()
+            RTt.focus_search("RMS Spot Size", z_start=z_det)
+            RTt.focus_search("Image Sharpness", z_start=z_det)
+            torch.cuda.synchronize()
+            row["outputs_seconds"] = time.perf_counter() - t0
+            row["host_arrays_made_by_outputs"] = len(rays._host)
+            assert len(rays._host) == 0, sorted(rays._host)
+            assert RTt.check_if_rays_are_current()
+        # the first full read, then against an eager conversion
+        t0 = time.perf_counter()
+        arrays = {a: getattr(rays, a) for a in rays._ARRAYS}
+        row["first_full_read_seconds"] = time.perf_counter() - t0
+        row["host_arrays_made_by_first_read"] = len(rays._host)
+        eager = eager_host_arrays(rays)
+        for a, v in arrays.items():
+            assert v.dtype == eager[a].dtype and np.array_equal(v, eager[a], equal_nan=True), a
+            assert not v.flags.writeable, a
+        assert RTt.check_if_rays_are_current()
+        wl_ = arrays["w_list"]
+        assert bool((wl_[:, 1:] <= wl_[:, :-1] * (1 + 1e-6)).all()), "a weight grew"
+        dead = int((wl_[:, -2] <= 0).sum())      # dead before the end absorber
+        assert int(RTt._msgs[:, :-1].sum()) == dead, (int(RTt._msgs[:, :-1].sum()), dead)
+        row.update(dead_before_end=dead, infos_rows=RTt._msgs.sum(axis=1).tolist())
+        del arrays, eager, wl_
+        if name == "double_gauss" and no_pol:
+            # scene A, scene B (another source power), scene A: a hit
+            rs = RTt.ray_sources[0]
+            power = rs.power
+            rs.power = 2 * power
+            t0 = time.perf_counter()
+            RTt.trace(n)
+            t_b = time.perf_counter() - t0
+            rs.power = power
+            seed = RTt._seed_counter
+            entries = len(RTt._trace_cache)
+            t0 = time.perf_counter()
+            RTt.trace(n)
+            t_a = time.perf_counter() - t0
+            assert len(RTt._trace_cache) == entries == 3, entries       # 20000, N, N at 2× power
+            fresh = scene(ot, no_pol=no_pol)
+            fresh._seed_counter = seed
+            fresh.trace(n)
+            for k, t in RTt.rays._dev.items():
+                assert (t is None) == (fresh.rays._dev[k] is None), k
+                assert t is None or _same_bits(t, fresh.rays._dev[k]), k
+            assert np.array_equal(RTt._msgs, fresh._msgs)
+            row["cache"] = dict(seconds_miss_a=t_miss, seconds_miss_b=t_b, seconds_hit_a=t_a,
+                                entries=entries, hit_vs_fresh_raytracer="bit for bit")
+            del fresh
+        out.append(row)
+        del RTt, rays
+        torch.cuda.empty_cache()
+    emit(dict(phase="trace", gpu=smi, cuda_fuse_planar=ot.global_options.cuda_fuse_planar, traces=out,
+              cpu_reference_ms_per_surface_per_mray=CPU_REFERENCE_MS_PER_SURFACE_MRAY))
+    return launches
+
+
+class OldSums:
+    """While the ``with`` block runs, the order-free sums take the form they
+    had before, for the record: the histograms (``ops/binning.py:scatter_sum``)
+    float ``index_add_`` in the threads' order, the focus search's sums over
+    the rays (``block_sums``) ``torch.sum``."""
+
+    def __enter__(self):
+        import torch
+        from optrace_tpu_torch.ops import binning
+        from optrace_tpu_torch.analysis import focus
+        from optrace_tpu_torch.tracer import raytracer
+        self.mods = (binning, focus, raytracer)
+
+        def index_add_sum(size, index, src, n=None, vmax=None):
+            return torch.zeros((size,) + tuple(src.shape[1:]), dtype=src.dtype,
+                               device=src.device).index_add_(0, index, src)
+
+        def torch_sums(v, blocks=1):
+            return v.view(blocks, -1, *v.shape[1:]).sum(dim=1)
+        self.real = [{k: getattr(m, k) for k in ("scatter_sum", "block_sums") if hasattr(m, k)}
+                     for m in self.mods]
+        for mod, names in zip(self.mods, self.real):
+            for k in names:
+                setattr(mod, k, index_add_sum if k == "scatter_sum" else torch_sums)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, names in zip(self.mods, self.real):
+            for k, fn in names.items():
+                setattr(mod, k, fn)
+
+
+def repeatable_phase(ot, smi, n=N_RAYS):
+    """On one stored trace of the double Gauss (10⁶ rays): two calls of
+    detector_spectrum, source_spectrum, focus_search with every method and
+    the design image (``bin_xyzw_soft`` of the detector hits) give equal
+    bits, and so do the same rays in a permuted order; the old form of the
+    sums (``OldSums``) on the same calls and on the permuted rays, its
+    differing values counted for the record."""
+    import numpy as np
+    import torch
+    from optrace_tpu_torch.ops import binning
+
+    RT = double_gauss_scene(ot, no_pol=True)
+    RT.trace(n)
+    z_det = float(RT.detectors[0].pos[2])
+
+    def outputs():
+        res = dict(detector_spectrum=torch.from_numpy(RT.detector_spectrum()._vals),
+                   source_spectrum=torch.from_numpy(RT.source_spectrum()._vals))
+        for method in RT.focus_search_methods:
+            r, fd = RT.focus_search(method, z_start=z_det, return_cost=True)
+            res[method] = torch.from_numpy(np.concatenate([[r.x, r.fun], fd["pos"], fd["cost"]]))
+        ph, w, wl = RT._hit_detector("design image", extent=list(DESIGN_EXT))[:3]
+        res["bin_xyzw_soft"] = binning.bin_xyzw_soft(ph[:, 0].float(), ph[:, 1].float(), w.float(), wl,
+                                                     SOFT_PIXELS, SOFT_PIXELS, DESIGN_EXT)
+        torch.cuda.synchronize()
+        return {k: v.cpu() for k, v in res.items()}
+
+    t0 = time.perf_counter()
+    first = outputs()
+    t_outputs = time.perf_counter() - t0
+    second = outputs()
+    with OldSums():
+        old = [outputs(), outputs()]
+    # the same rays in another order
+    r = RT.rays
+    perm = torch.randperm(n, generator=ot.make_generator(41), device=r._dev["p"].device)
+    d = r._dev
+    r._lock = False
+    r.fill(d["p"][perm], d["w"][perm], None, d["n"][perm], d["wl"][perm])
+    r.lock()
+    RT._last_trace_snapshot = RT.tracing_snapshot()
+    permuted = outputs()
+    with OldSums():
+        old_permuted = outputs()
+    rows = {}
+    for k in first:
+        assert _same_bits(first[k], second[k]), ("two calls", k)
+        assert _same_bits(first[k], permuted[k]), ("permuted rays", k)
+        rows[k] = dict(values=int(first[k].numel()),
+                       old_form_values_differing_between_two_calls=_differing_bits(old[0][k], old[1][k]),
+                       old_form_values_differing_for_permuted_rays=_differing_bits(old[0][k], old_permuted[k]),
+                       old_form_max_abs_diff=float(np.nanmax(np.abs((old[0][k] - old[1][k]).numpy()))),
+                       old_form_max_abs_diff_permuted=float(np.nanmax(np.abs((old[0][k] - old_permuted[k]).numpy()))))
+    assert float(first["bin_xyzw_soft"][..., 3].sum()) > 0
+    emit(dict(phase="repeatable", gpu=smi, scene="double_gauss", N=n, design_image=[SOFT_PIXELS] * 2,
+              outputs_seconds=t_outputs, two_calls="bit for bit", permuted_rays="bit for bit",
+              outputs=rows))
+    del RT
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2078,6 +2346,7 @@ def main():
                               bin_per_ray_in_fullest_pixel=TOL_BIN_PER_RAY,
                               flips_per_mray=FLIPS_PER_MRAY),
               ops_per_ray_step=RUN_OPS_PER_RAY_STEP))
+    stack_store = stack["conic_run[nopol,store]"]      # the stored trace of the stack: phase trace
     del stack
 
     # ---- the paths: before each drive the counters are set to 0, right ----
@@ -2213,52 +2482,11 @@ def main():
     launches.update(graph_phase(ot, smi))
     torch.cuda.empty_cache()
 
-    # ---- 4. stored trace -------------------------------------------------
-    trace_out = []
-    for no_pol in (False, True):
-        RTt = double_gauss_scene(ot, no_pol=no_pol)
-        n_surf = len(RTt.tracing_surfaces)
-        RTt.trace(20000)                        # warm-up at a small size
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        RTt.trace(N_RAYS)
-        t_total = time.perf_counter() - t0
-        # one launch for each run, all of the stored variant of this mode
-        stored_runs = run_partition(ot, RTt)
-        assert stored_runs == dg_runs, stored_runs
-        assert conic_run.variant_launches == {(not no_pol, True): len(stored_runs)}, conic_run.variant_launches
-        launches["conic_run[nopol,store]" if no_pol else "conic_run[pol,store]"] = conic_run.launches
-        rays = RTt.rays
-        assert rays.p_list.shape == (N_RAYS, n_surf + 2, 3), rays.p_list.shape
-        assert rays.w_list.shape == (N_RAYS, n_surf + 2)
-        wl_ = rays.w_list
-        assert bool((wl_[:, 1:] <= wl_[:, :-1] * (1 + 1e-6)).all()), "a weight grew"
-        dead = int((wl_[:, -2] <= 0).sum())      # dead before the end absorber
-        counted = int(RTt._msgs[:, :-1].sum())
-        assert counted == dead, (counted, dead)
-        if not no_pol:
-            assert rays.pol_list.shape == (N_RAYS, n_surf + 2, 3)
-        # device time of source + trace alone (no copy to the host)
-        steps = RTt._build_steps()
-        src = RTt._make_source_fn(N_RAYS)
-        outl = tuple(float(v) for v in RTt.outline)
-
-        def dev_trace():
-            with torch.no_grad():
-                b = src(ot.make_generator(5))
-                return trace_bundle(steps, RTt.n0, outl, *b, no_pol)
-        dev_ms = cuda_ms(dev_trace, reps=3, warmup=1)
-        trace_out.append(dict(no_pol=no_pol, N=N_RAYS, surfaces=n_surf,
-                              sections=list(rays.p_list.shape),
-                              seconds_with_host_copy=t_total, device_ms=dev_ms,
-                              ms_per_surface_per_mray=dev_ms / n_surf / (N_RAYS / 1e6),
-                              dead_before_end=dead,
-                              infos_rows=RTt._msgs.sum(axis=1).tolist()))
-        del RTt, rays, wl_, steps, src
-    emit(dict(phase="trace", gpu=smi, scene="double_gauss", cuda_fuse_planar=fuse_default,
-              traces=trace_out,
-              cpu_reference_ms_per_surface_per_mray=CPU_REFERENCE_MS_PER_SURFACE_MRAY))
+    # ---- 4. stored trace: on the card until it is read; the trace cache ----
+    launches.update(trace_phase(ot, smi, dg_runs))
+    torch.cuda.empty_cache()
+    repeatable_phase(ot, smi)
+    torch.cuda.empty_cache()
 
     # ---- 5. asphere stack: kernel, then trace → detector_image → sRGB -----
     # the plain version of an asphere run is about 11 000 eager launches: timed once
@@ -2342,22 +2570,30 @@ def main():
               path=dict(entry="Raytracer.trace -> detector_image -> get('sRGB (Absolute RI)')",
                         launches=dict(conic_run=launches["conic_run[nopol,store]@asphere20"],
                                       bin_xyzw=launches["bin_xyzw@detector_image"]),
-                        trace_seconds_with_host_copy=t_trace, detector_image_seconds=t_image,
+                        trace_seconds=t_trace, detector_image_seconds=t_image,
                         get_srgb_seconds=t_get, image=list(data.shape), extent=list(rimg.extent),
                         power_on_detector=rimg.power(), source_power=source_power_a,
                         infos_rows=RTa._msgs.sum(axis=1).tolist(),
                         image_vs_plain_max_abs=d_image, sections_vs_plain_max_abs=d_sections,
                         flipped_rays_vs_plain=flips_a,
-                        pol_trace_seconds_with_host_copy=t_trace_pol,
+                        pol_trace_seconds=t_trace_pol,
                         fused_render_power_on_detector=power_render_a)))
     del RTp, rimg_p, rgb
 
     # ---- 5b. the sections kept on the card: images and spectra of that trace --
     from optrace_tpu_torch import color as color_mod
-    assert RTa._dev_sections is not None and RTa._dev_sections[1].is_cuda
+    assert RTa.rays._dev["p"].is_cuda
+    kept_MB = sum(t.numel() * t.element_size() for t in RTa.rays._dev.values() if t is not None) / 1e6
+    # the storage filled with its own host arrays, as user code may: the
+    # sections are then uploaded from the host
+    r = RTa.rays
+    r._lock = False
+    r.fill(r.p_list, r.w_list, r.pol_list, r.n_list, r.wl_list, r.s0_list)
+    r.lock()
+    RTa._last_trace_snapshot = RTa.tracing_snapshot()
+    assert r._dev is None
     reset_launch_counts()
     t0 = time.perf_counter()
-    RTa._dev_sections = None                    # drop the tensors: the host storage is uploaded
     rimg_h = RTa.detector_image()
     t_image_host = time.perf_counter() - t0
     assert bin_xyzw_cuda.launches == 1
@@ -2433,7 +2669,7 @@ def main():
               image_vs_host_storage_path_max_abs=d_host, image_max=float(data.max()),
               tolerance=TOL_BIN * float(data.max()),
               detector_spectrum_seconds=t_dspec, source_image_seconds=t_simg,
-              kept_tensors_MB=sum(t.numel() * t.element_size() for t in RTa._dev_sections[1:]) / 1e6,
+              kept_tensors_MB=kept_MB,
               bin_source_image=bin_source, against_f64_histograms=sections_out,
               launches=dict(bin_xyzw_per_image=1, bin_xyzw_per_spectrum=0)))
     del RTa, rimg, rimg_h, rimg2, data, simg, ph_d, w_d, wl_d, ph_h, w_h, wl_h, src_p, src_w, src_wl
@@ -2657,7 +2893,7 @@ def main():
     emit(dict(phase="steps", gpu=smi, scene="image source, filter, double Gauss with HURB, ideal lens",
               N=N_RAYS, actions=[st.action for st in RTs._build_steps()], partition=kinds_s,
               launches=dict(conic_run_per_trace=2, device_launches_per_trace=n_launch_steps),
-              trace_seconds_with_host_copy=t_steps, kernel=steps_kernel,
+              trace_seconds=t_steps, kernel=steps_kernel,
               sections_bit_equal_to_plain_runs=sections_equal,
               infos_rows=RTs._msgs.sum(axis=1).tolist(), hurb_neg_dir=int(RTs._msgs[4].sum()),
               source_power=source_power_s, power_behind_filter=w_filt,
@@ -2871,6 +3107,7 @@ def main():
     rows["conic_run[nopol,nostore]@sharded"] = main_shapes["conic_run[nopol,nostore]"]
     rows["bin_xyzw@sharded"] = main_shapes["bin_xyzw"]
     rows["conic_run[pol,store]@gui"] = main_shapes["conic_run[pol,store]"]
+    rows["conic_run[nopol,store]@stack56"] = stack_store
     rows.update(gui_rows)
     sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
                "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),

@@ -15,9 +15,14 @@ reduced to an affine line ``q(z) = q0 + m * z`` in the transverse plane
 
 Where the JAX package maps the cost over the planes with ``jax.vmap``, a
 sweep here evaluates a chunk of planes with batched tensor operations: the
-histograms of a chunk are one ``index_add_`` into ``planes × n_px²`` bins
-under the flat index ``plane · n_px² + pixel``. A chunk holds as many
-planes as keep its ``q0 + m·z`` within :data:`CHUNK_BYTES`.
+histograms of a chunk are one order-free sum (``ops/binning.py:scatter_sum``)
+into ``planes × n_px²`` bins under the flat index ``plane · n_px² + pixel``,
+at a scale set by the ray count and the largest weight, so a plane's
+histogram does not depend on the order of the rays or on the chunk that
+holds it. The RMS cost and its closed form sum over the rays in the same
+order-free way (``ops/binning.py:block_sums``), each plane at the scale of
+its own largest value, so neither does a plane's RMS cost. A chunk holds as
+many planes as keep its ``q0 + m·z`` within :data:`CHUNK_BYTES`.
 """
 
 import math
@@ -25,10 +30,15 @@ import math
 import numpy as np
 import torch
 
+from ..ops.binning import block_sums, scatter_sum
+
 SWEEP_SAMPLES = 320          # planes per coarse sweep
 REFINE_ROUNDS = 3            # zoom iterations after the coarse sweep
 REFINE_SAMPLES = 33
-CHUNK_BYTES = 256 * 2 ** 20  # the (planes, N, 2) positions of one chunk of a sweep
+# the (planes, N, 2) f32 positions of one chunk of a sweep; the chunk's
+# order-free sums hold f64 and int64 copies of them besides, so a sweep's
+# peak is several times this (chip_smoke.py's phase focus prints it)
+CHUNK_BYTES = 256 * 2 ** 20
 
 MODES = ("RMS Spot Size", "Image Sharpness", "Image Center Sharpness", "Irradiance Variance")
 
@@ -46,9 +56,10 @@ def _planes(q0, m, z):
 
 def _rms_cost(q0, m, w, z):
     q = _planes(q0, m, z)
-    wsum = w.sum()
-    mean = (q * w[None, :, None]).sum(dim=1, keepdim=True) / wsum
-    var = (((q - mean) ** 2) * w[None, :, None]).sum(dim=1) / wsum
+    P, N = q.shape[:2]
+    wsum = block_sums(w[:, None])[0, 0]
+    mean = block_sums((q * w[None, :, None]).reshape(P * N, 2), P)[:, None] / wsum
+    var = block_sums((((q - mean) ** 2) * w[None, :, None]).reshape(P * N, 2), P) / wsum
     return torch.sqrt(var[:, 0] + var[:, 1])
 
 
@@ -72,8 +83,8 @@ def _spot_histograms(q0, m, w, z, n_px: int):
     pix = (torch.where(inside, fy, 0.0) * n_px + torch.where(inside, fx, 0.0)).to(torch.int64)
     P = z.shape[0]
     flat = pix + torch.arange(P, device=pix.device)[:, None] * (n_px * n_px)
-    img = torch.zeros(P * n_px * n_px, dtype=wm.dtype, device=wm.device)
-    img.index_add_(0, flat.reshape(-1), wm.reshape(-1))
+    img = scatter_sum(P * n_px * n_px, flat.reshape(-1), wm.reshape(-1),
+                      n=w.shape[0], vmax=w.abs().amax())
     apx = ((x1 - x0) * (y1 - y0))[:, 0] / n_px ** 2
     return img.view(P, n_px, n_px), apx
 
@@ -129,18 +140,18 @@ def cost_sweep(z_arr, q0, m, w, mode: str, n_px: int):
 
 def rms_focus_direct(q0, m, w, bounds) -> float:
     """Closed-form minimizer of the weighted RMS spot size, in f64 on the
-    device of ``q0``.
+    device of ``q0``, from order-free sums over the rays.
 
     var_x(z) + var_y(z) is quadratic in z with minimum
     z* = -(cov(x0, mx) + cov(y0, my)) / (var(mx) + var(my))
     over the w-weighted central moments of the line parameters.
     """
     q0, m, w = (torch.as_tensor(a).to(torch.float64) for a in (q0, m, w))
-    wsum = w.sum()
-    qc = q0 - (q0 * w[:, None]).sum(dim=0) / wsum
-    mc = m - (m * w[:, None]).sum(dim=0) / wsum
-    curv = float((w * (mc[:, 0] ** 2 + mc[:, 1] ** 2)).sum() / wsum)
-    slope = float((w * (qc[:, 0] * mc[:, 0] + qc[:, 1] * mc[:, 1])).sum() / wsum)
+    wsum = block_sums(w[:, None])[0, 0]
+    qc = q0 - block_sums(q0 * w[:, None])[0] / wsum
+    mc = m - block_sums(m * w[:, None])[0] / wsum
+    curv = float(block_sums((w * (mc[:, 0] ** 2 + mc[:, 1] ** 2))[:, None])[0, 0] / wsum)
+    slope = float(block_sums((w * (qc[:, 0] * mc[:, 0] + qc[:, 1] * mc[:, 1]))[:, None])[0, 0] / wsum)
     z_opt = -slope / curv if curv else float(np.mean(bounds))
     return float(np.clip(z_opt, bounds[0], bounds[1]))
 

@@ -382,7 +382,7 @@ class MousePicking:
         if not rays.N or not np.any(sel):
             return None
         idx = np.where(sel)[0]
-        p = rays.p_list[idx]                                 # (n, nt, 3)
+        p = rays.rays_by_mask(sel, ret=[1, 0, 0, 0, 0, 0, 0])[0]          # (n, nt, 3)
         ax = gui.scene.ax
         flat = p.reshape(-1, 3)
         x2, y2, _ = proj3d.proj_transform(flat[:, 0], flat[:, 1], flat[:, 2],

@@ -8,9 +8,9 @@ element side cylinders, the outline box, markers, volumes and a random
 subset of ray polylines colored by the selected mode. Ray picking returns
 the reference's info-text content for a ray section.
 
-The rays come from the host arrays of ``RT.rays`` (``RayStorage``), which
-``Raytracer.trace`` fills once a trace; a replot indexes the shown subset
-of them and copies nothing from the device.
+The rays come from ``RT.rays`` (``RayStorage``), whose sections stay on
+the raytracer's device: a replot reads the shown subset through
+``rays_by_mask``, which copies those rays alone to the host.
 """
 
 import numpy as np
@@ -235,37 +235,33 @@ class ScenePlotting:
             self.ax.scatter(fp[:, 0], fp[:, 1], fp[:, 2], color="red", marker="x", s=40)
 
     # ------------------------------------------------------------------
-    def _ray_colors(self, sel, mode):
+    def _ray_colors(self, mode, wl, w, snum, pol, n):
         """per-ray RGB colors according to the coloring mode
-        (reference _scene_plotting.py:966-1084)."""
-        rays = self.raytracer.rays
-        N_sel = int(np.count_nonzero(sel))
+        (reference _scene_plotting.py:966-1084), from the shown rays'
+        wavelengths, source numbers and first sections' power, polarization
+        and refractive index."""
+        N_sel = wl.shape[0]
         if mode == "Plain":
             return np.tile([list(self._plain_ray_color)], (N_sel, 1))
         if mode == "Wavelength":
-            wl = rays.wl_list[sel]
             rgba = np.asarray(ocolor.spectral_colormap(wl))
             return rgba[:, :3]
         if mode == "Power":
-            w = rays.w_list[sel, 0]
             t = w / max(w.max(), 1e-30)
             cmap = matplotlib.colormaps["viridis"]
             return cmap(t)[:, :3]
         if mode == "Source":
-            _, _, _, _, _, sn, _ = rays.rays_by_mask(sel, ret=[0, 0, 0, 0, 0, 1, 0])
             cmap = matplotlib.colormaps["tab10"]
-            return cmap(sn % 10)[:, :3]
+            return cmap(snum % 10)[:, :3]
         if mode in ("Polarization xz", "Polarization yz"):
             comp = 0 if mode == "Polarization xz" else 1
-            pol = rays.pol_list[sel, 0]
             t = np.abs(pol[:, comp])
             t = np.nan_to_num(t)
             cmap = matplotlib.colormaps["coolwarm"]
             return cmap(t)[:, :3]
         if mode == "Refractive Index":
-            n0 = rays.n_list[sel, 0]
-            rng = n0.max() - n0.min()
-            t = (n0 - n0.min()) / rng if rng else np.zeros_like(n0)
+            rng = n.max() - n.min()
+            t = (n - n.min()) / rng if rng else np.zeros_like(n)
             cmap = matplotlib.colormaps["plasma"]
             return cmap(t)[:, :3]
         return np.tile([[0.8, 0.8, 0.8]], (N_sel, 1))
@@ -286,13 +282,12 @@ class ScenePlotting:
         sel[idx] = True
         self._ray_selection = sel
 
-        p = rays.p_list[sel]          # (n, nt, 3)
-        segments = p
-        colors = self._ray_colors(sel, self.gui.coloring_mode)
-
         # property-browser tab of the shown rays (reference legend keys,
-        # property_browser.py:22-28)
+        # property_browser.py:22-28): only the shown rays leave the device
         pr, s, pol, w, wl, snum, n = rays.rays_by_mask(sel)
+        p = segments = pr             # (n, nt, 3)
+        colors = self._ray_colors(self.gui.coloring_mode, wl, w[:, 0], snum, pol[:, 0], n[:, 0])
+
         s_un = p[:, 1:] - p[:, :-1]
         s_un = np.concatenate((s_un, np.zeros((s_un.shape[0], 1, 3))), axis=1)
         self._ray_property_dict = dict(
@@ -329,7 +324,7 @@ class ScenePlotting:
 
     def highlight_ray(self, index: int, section: int = None) -> None:
         rays = self.raytracer.rays
-        p = rays.p_list[index]
+        p = rays.rays_by_mask(np.arange(rays.N) == index, ret=[1, 0, 0, 0, 0, 0, 0])[0][0]
         if self._pick_artist is not None:
             try:
                 self._pick_artist.remove()
@@ -374,7 +369,7 @@ class ScenePlotting:
         if not rays.N or not np.any(self._ray_selection):
             return None
         idx = np.where(self._ray_selection)[0]
-        p = rays.p_list[idx]                        # (n, nt, 3)
+        p = rays.rays_by_mask(self._ray_selection, ret=[1, 0, 0, 0, 0, 0, 0])[0]     # (n, nt, 3)
         d2 = np.sum((p - np.asarray(pos, dtype=np.float64)) ** 2, axis=-1)
         flat = int(np.argmin(d2))
         return int(idx[flat // p.shape[1]]), int(flat % p.shape[1])

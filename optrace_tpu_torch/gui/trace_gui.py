@@ -16,8 +16,8 @@ Counterpart of ``optrace_tpu/gui/trace_gui.py``. Every action runs on the
 raytracer's device (``RT.device``, the CUDA device unless the raytracer was
 built with ``device="cpu"``): ``retrace`` is ``Raytracer.trace``, and the
 detector and source images and spectra and the focus search read the
-sections that the trace keeps on that device. The scene draws from the
-host copy of the sections that ``trace`` makes once (``RT.rays``).
+sections that the trace keeps on that device. The scene draws the rays it
+shows, which alone are copied to the host (``RT.rays.rays_by_mask``).
 """
 
 from contextlib import contextmanager

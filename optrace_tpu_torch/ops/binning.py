@@ -8,8 +8,14 @@ version: the same values added as 64-bit integers, so that the image does
 not depend on the order of the rays. :func:`bin_scalar`,
 :func:`bin_xyzw_sorted`, :func:`bin_xyzw_soft` and :func:`histogram_1d` are
 tensor functions on the device of their inputs; :func:`bin_xyzw_soft` is the
-differentiable one.
+differentiable one. :func:`bin_scalar`, :func:`histogram_1d` and
+:func:`bin_xyzw_soft` add through :func:`scatter_sum` (and the focus
+search through :func:`block_sums`), whose sums are integers too: one input
+gives one result, whatever the order of its rays and whatever the order in
+which the device's threads add them.
 """
+
+import math
 
 import torch
 
@@ -74,7 +80,12 @@ def exponent_for(wmax, N: int):
     largest observer value or 1 (:func:`observer_bound`), for a 0-dim f32
     tensor ``wmax``: taken from the exponent field of that bound in f64, so
     a bound of 0 gives ``FIXED_BITS``."""
-    bound = wmax.to(torch.float64) * float(N) * observer_bound()
+    return _exponent(wmax.to(torch.float64) * float(N) * observer_bound())
+
+
+def _exponent(bound):
+    """The largest ``e`` with bound·2^e < 2^FIXED_BITS for a 0-dim f64
+    tensor ``bound`` >= 0, from its exponent field; 0 gives FIXED_BITS."""
     biased = bound.view(torch.int64) >> 52        # bound >= 0: no sign bit
     return torch.where(biased == 0, FIXED_BITS, FIXED_BITS + 1022 - biased)
 
@@ -107,12 +118,123 @@ def bin_xyzw_fixed(px, py, w, wl, Nx: int, Ny: int, extent, out=None):
     return out.copy_(torch.where(acc != 0, out + img, out))
 
 
+def scatter_sum(size: int, index, src, n: int = None, vmax=None):
+    """``zeros(size, ...).index_add_(0, index, src)`` as a function of the
+    set of (index, value) pairs: the result does not depend on their order,
+    on the CPU or on a CUDA device, where ``index_add_`` adds floats in the
+    order in which the threads arrive.
+
+    The values are rounded to integers at a scale 2^e and summed as int64,
+    which is exact and so order-free (:func:`to_fixed`). ``e`` is the
+    largest with n·vmax·2^e < 2^FIXED_BITS: ``n`` bounds the count of
+    values that meet in one place (default: all of them) and ``vmax``
+    |src| (a 0-dim tensor; default: reduced from ``src`` on its device,
+    nothing is read back). Values must be finite. ``src`` is (M,) or
+    (M, C); the result is (size,) or (size, C) in the type of ``src``.
+    """
+    out_shape = (size,) + tuple(src.shape[1:])
+    if src.shape[0] == 0:
+        return torch.zeros(out_shape, dtype=src.dtype, device=src.device)
+    q, e, bits = to_fixed(src, n, vmax)
+    acc = torch.zeros(out_shape + q.shape[src.dim():], dtype=torch.int64, device=src.device)
+    return from_fixed(acc.index_add_(0, index, q), e, bits, src.dtype)
+
+
+def block_sums(src, blocks: int = 1):
+    """The sums over each of ``blocks`` equal runs of the rows of ``src``
+    (blocks · n, ...), (blocks, ...): order-free as :func:`scatter_sum`, and
+    without atomics (the integers are added by ``torch.sum``, exactly). Each
+    block takes its own scale, from its own largest value, so a block's sum
+    does not depend on the blocks beside it."""
+    n = src.shape[0] // blocks
+    if n == 0:
+        return torch.zeros((blocks,) + tuple(src.shape[1:]), dtype=src.dtype, device=src.device)
+    src = src.reshape((blocks, n) + tuple(src.shape[1:]))
+    vmax = src.abs().amax(dim=tuple(range(1, src.dim())), keepdim=True)
+    q, e, bits = to_fixed(src, n, vmax)
+    return from_fixed(q.sum(dim=1), e.squeeze(1), bits, src.dtype)
+
+
+def to_fixed(src, n: int = None, vmax=None):
+    """The integers of :func:`scatter_sum`: ``(q, e, bits)``, q int64.
+
+    - f32 (and narrower): one integer a value, ``src`` · 2^e rounded half to
+      even, as :func:`bin_xyzw_fixed` rounds; q has the shape of ``src``.
+    - f64: three integers a value in a last axis, the whole part at 2^e and
+      two limbs of ``bits`` <= 52 bits below it, so every bit of an f64
+      within 2^-100 of vmax takes part in the exact sum.
+    """
+    n = src.shape[0] if n is None else int(n)
+    if vmax is None:
+        vmax = src.abs().amax()
+    e = torch.clamp(_exponent(vmax.to(torch.float64) * float(max(n, 1))), max=1022)
+    s = src.to(torch.float64) * pow2(e)
+    if src.dtype != torch.float64:
+        return s.round_().to(torch.int64), e, 0
+    bits = _limb_bits(n)
+    hi = torch.trunc(s)
+    r = (s - hi) * 2.0 ** bits                      # exact: a power of two times a fraction
+    mid = torch.trunc(r)
+    lo = torch.round((r - mid) * 2.0 ** bits)
+    return torch.stack([hi, mid, lo], dim=-1).to(torch.int64), e, bits
+
+
+def from_fixed(acc, e, bits: int, dtype):
+    """Sums of the integers of :func:`to_fixed` back to ``dtype``: f32 the
+    sum rounded once, f64 within a few ulp of the exact sum (the three
+    limbs carried into canonical limbs, then combined)."""
+    if dtype != torch.float64:
+        return (acc.to(torch.float64) * pow2(-e)).to(dtype)
+    hi, mid, lo = acc.unbind(-1)
+    # carry into limbs in [0, 2^bits): then mid and lo are exact in f64
+    c = lo >> bits
+    lo = lo - (c << bits)
+    mid = mid + c
+    c = mid >> bits
+    mid = mid - (c << bits)
+    hi = hi + c
+    frac = (mid.to(torch.float64) + lo.to(torch.float64) * 2.0 ** -bits) * 2.0 ** -bits
+    return (hi.to(torch.float64) + frac) * pow2(-e)
+
+
+def _limb_bits(n: int) -> int:
+    """Bits of a limb of :func:`to_fixed`'s f64 route: n of them sum to at
+    most 2^FIXED_BITS, and a canonical limb is exact in f64."""
+    return min(52, FIXED_BITS - math.ceil(math.log2(max(n, 1) + 1)))
+
+
+class _ScatterSum(torch.autograd.Function):
+    """:func:`scatter_sum` with the derivatives of ``index_add``: the
+    backward gathers the gradient at the indices (as ``index_add``'s does,
+    bit for bit), a forward-mode tangent is summed like the values."""
+
+    @staticmethod
+    def forward(size, index, src):
+        return scatter_sum(size, index, src)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        size, index, _ = inputs
+        ctx.size = size
+        ctx.save_for_backward(index)
+        ctx.save_for_forward(index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, = ctx.saved_tensors
+        return None, None, grad.index_select(0, index)
+
+    @staticmethod
+    def jvp(ctx, _size_t, _index_t, src_t):
+        index, = ctx.saved_tensors
+        return scatter_sum(ctx.size, index, src_t)
+
+
 def bin_scalar(px, py, w, Nx: int, Ny: int, extent):
-    """Accumulate plain weights into an (Ny, Nx) histogram."""
+    """Accumulate plain weights into an (Ny, Nx) histogram (order-free,
+    :func:`scatter_sum`)."""
     xi, yi, wm = binning_indices_2d(px, py, w, Nx, Ny, extent)
-    img = torch.zeros((Ny * Nx,), dtype=wm.dtype, device=wm.device)
-    img.index_add_(0, yi * Nx + xi, wm)
-    return img.view(Ny, Nx)
+    return scatter_sum(Ny * Nx, yi * Nx + xi, wm).view(Ny, Nx)
 
 
 def bin_xyzw_sorted(px, py, w, wl, Nx: int, Ny: int, extent):
@@ -140,7 +262,8 @@ def bin_xyzw_soft(px, py, w, wl, Nx: int, Ny: int, extent):
     positions and autograd reaches ``px``, ``py`` and ``w`` (the hard
     histogram of :func:`bin_xyzw` is piecewise constant in position). Rays
     outside the extent deposit nothing; neighbours beyond the border are
-    clamped onto it.
+    clamped onto it. The four deposits of every ray are summed in one
+    order-free :func:`scatter_sum`; the gradient is that of ``index_add``.
     """
     x0, x1, y0, y1 = extent[0], extent[1], extent[2], extent[3]
     gx = (px - x0) / (x1 - x0) * Nx - 0.5
@@ -159,21 +282,23 @@ def bin_xyzw_soft(px, py, w, wl, Nx: int, Ny: int, extent):
     xyzw = torch.stack([x_observer(wl) * wm, y_observer(wl) * wm,
                         z_observer(wl) * wm, wm], dim=-1)
 
-    img = torch.zeros((Ny * Nx, 4), dtype=xyzw.dtype, device=xyzw.device)
+    index, deposits = [], []
     for dy, wy in ((0, 1.0 - fy), (1, fy)):
         for dx, wx in ((0, 1.0 - fx), (1, fx)):
             xi = torch.clamp(ix + dx, 0, Nx - 1)
             yi = torch.clamp(iy + dy, 0, Ny - 1)
-            img = img.index_add(0, yi * Nx + xi, xyzw * (wx * wy)[:, None])
-    return img.view(Ny, Nx, 4)
+            index.append(yi * Nx + xi)
+            deposits.append(xyzw * (wx * wy)[:, None])
+    return _ScatterSum.apply(Ny * Nx, torch.cat(index), torch.cat(deposits)).view(Ny, Nx, 4)
 
 
 def histogram_1d(x, w, N: int, x0, x1):
-    """Weighted 1D histogram with inclusive upper edge (spectrum render).
-    Values outside [x0, x1] go to bin 0 with weight 0."""
+    """Weighted 1D histogram with inclusive upper edge (spectrum render),
+    order-free (:func:`scatter_sum`). Values outside [x0, x1] go to bin 0
+    with weight 0."""
     fi = torch.floor(N / (x1 - x0) * (x - x0))
     fi = torch.where(x == x1, float(N - 1), fi)
     inside = (fi >= 0) & (fi < N)
     wm = torch.where(inside, w, 0.0)
     xi = torch.where(inside, fi, 0.0).to(torch.int64)
-    return torch.zeros((N,), dtype=wm.dtype, device=wm.device).index_add_(0, xi, wm)
+    return scatter_sum(N, xi, wm)

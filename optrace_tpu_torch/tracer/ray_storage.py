@@ -5,15 +5,23 @@ Behavioral parity with reference ``optrace/tracer/ray_storage.py``
 pol_list, wl_list), source apportioning ∝ power, selective fetch with
 direction reconstruction, section/optical length utilities.
 
-The arrays are filled in one shot from the device trace output, whose
-positions are f32 (the trace's working type). :meth:`RayStorage.fill` hands
-them out read-only and numbers the fill, so that the change detection
-(``crepr``) need not hash a gigabyte of sections before every image.
+A trace fills the storage with its f32 tensors on the device
+(:meth:`RayStorage.fill`), and there they stay: the images, spectra and the
+focus search read them where they lie (:meth:`RayStorage.sections`). A
+public array is made on the host at its first read, in the types of the
+JAX package's storage (positions and indices f64, the rest f32) and
+read-only; the selective reads (:meth:`RayStorage.rays_by_mask`,
+:meth:`RayStorage.source_sections` and what stands on them) select on the
+device and copy only what they return. A storage that user code fills with
+numpy arrays holds them as they are. Every fill is numbered, so that the
+change detection (``crepr``) need not make or hash a gigabyte of sections
+before every image.
 """
 
 import itertools
 
 import numpy as np
+import torch
 
 from ..utils.base_class import BaseClass
 from ..utils.warnings import warning
@@ -36,23 +44,33 @@ def _read_only(a):
     return a
 
 
+def _source_directions(p01):
+    """The unit directions of the first section from the f32 positions of
+    the first two, (n, 2, 3), in f32 arithmetic, as f64 (zero where the
+    ray does not move)."""
+    s0 = p01[:, 1] - p01[:, 0]
+    norm = np.linalg.norm(s0, axis=-1, keepdims=True)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        s0 = np.where(norm > 0, s0 / norm, s0)
+    return np.asarray(s0, dtype=np.float64)
+
+
 class RayStorage(BaseClass):
 
-    _ARRAYS = ("p_list", "s0_list", "n_list", "pol_list", "w_list", "wl_list")
+    # public array -> (device tensor it is made from, host type)
+    _ARRAYS = {"p_list": ("p", np.float64), "s0_list": ("p", np.float64),
+               "n_list": ("n", np.float64), "pol_list": ("pol", np.float32),
+               "w_list": ("w", np.float32), "wl_list": ("wl", np.float32)}
 
     def __init__(self, **kwargs) -> None:
         self._lock = False
         self._fill_id = 0
+        self._dev = None        # the trace's f32 tensors p, w, pol (None under no_pol), n, wl
+        self._host = {name: np.array([]) for name in self._ARRAYS}   # arrays made or handed in
         self.N_list = np.array([], dtype=int)
         self.B_list = np.array([], dtype=int)
         self.no_pol = False
         self.ray_source_list = []
-        self.p_list = np.array([])
-        self.s0_list = np.array([])
-        self.n_list = np.array([])
-        self.pol_list = np.array([])
-        self.w_list = np.array([])
-        self.wl_list = np.array([])
         super().__init__(**kwargs)
 
     # ------------------------------------------------------------------
@@ -79,34 +97,101 @@ class RayStorage(BaseClass):
         self.B_list = np.concatenate(([0], np.cumsum(self.N_list))).astype(int)
         self.ray_source_list = ray_source_list
 
-    def fill(self, p, w, pol, n, wl, s0) -> None:
-        """Store the device trace output (host numpy copies, read-only)."""
-        self.p_list = _read_only(np.asarray(p, dtype=np.float64))
-        self.w_list = _read_only(np.asarray(w, dtype=np.float32))
-        self.n_list = _read_only(np.asarray(n, dtype=np.float64))
-        self.wl_list = _read_only(np.asarray(wl, dtype=np.float32))
-        self.s0_list = _read_only(np.asarray(s0, dtype=np.float64))
-        if self.no_pol:
-            self.pol_list = np.broadcast_to(np.nan, self.p_list.shape)
+    def fill(self, p, w, pol, n, wl, s0=None) -> None:
+        """Store a trace: its f32 tensors p (N, nt, 3), w (N, nt), pol
+        (N, nt, 3, None under no_pol), n (N, nt) and wl (N,) on their
+        device, which the storage keeps (the host arrays follow at their
+        first read, ``s0`` from p); or host arrays p, w, pol, n, wl and s0,
+        kept read-only in the types of the public arrays."""
+        if isinstance(p, torch.Tensor):
+            self._dev = dict(p=p, w=w, pol=None if self.no_pol or pol is None else pol, n=n, wl=wl)
+            self._host = {}
         else:
-            self.pol_list = _read_only(np.asarray(pol, dtype=np.float32))
+            self._dev = None
+            host = dict(p_list=p, w_list=w, n_list=n, wl_list=wl, s0_list=s0, pol_list=pol)
+            self._host = {name: _read_only(np.asarray(host[name], dtype=dt))
+                          for name, (_, dt) in self._ARRAYS.items()
+                          if not (name == "pol_list" and self.no_pol)}
+            if self.no_pol:
+                self._host["pol_list"] = np.broadcast_to(np.nan, self._host["p_list"].shape)
         self._fill_id = next(_fill_serial)
 
+    def _array(self, name):
+        """The public array ``name``, made from the device tensors at its
+        first read."""
+        a = self._host.get(name)
+        if a is None:
+            a = self._host[name] = self._from_device(name, slice(None))
+        return a
+
+    def _from_device(self, name, rows, sec=None):
+        """``self.<name>[rows]``, or ``[rows, sec]``, from the device
+        tensors, copying only those values: ``rows`` a slice or a boolean
+        mask over the rays, ``sec`` an index, a slice or an index array of
+        sections (numpy's rules). Made on the host as the whole array is."""
+        key, dtype = self._ARRAYS[name]
+        t = self._dev[key]
+        if t is None:           # no polarization traced: NaN, as the JAX package's storage holds
+            nan = np.broadcast_to(np.nan, self._dev["p"].shape)
+            return nan[rows] if sec is None else nan[rows, sec]
+        # a slice of rows is numpy's basic indexing: a read-only result, as
+        # a view of the whole array would be; a mask gives a new array
+        basic = isinstance(rows, slice)
+        if not basic:
+            rows = torch.as_tensor(np.flatnonzero(rows), device=t.device)
+        if name == "s0_list":
+            a = _source_directions(t[rows, :2].cpu().numpy())
+            a = a if sec is None else a[:, sec]
+        else:
+            if sec is not None and not isinstance(sec, (int, np.integer, slice)):
+                sec = torch.as_tensor(np.asarray(sec), device=t.device)
+            v = t[rows] if sec is None else t[rows, sec]
+            a = v.cpu().numpy().astype(dtype, copy=False)
+        return _read_only(a) if basic else a
+
+    def _shape(self, name):
+        if self._dev is None or name in self._host:
+            return self._array(name).shape
+        p = self._dev["p"].shape
+        return {"s0_list": p[:1] + p[2:], "n_list": p[:2], "w_list": p[:2], "wl_list": p[:1]}.get(name, p)
+
     def crepr(self):
-        """State for the change detection. A read-only array stands by its
-        shape, its type and the number of the fill that made it, which no
-        other fill shares; an array that someone made writeable again is
-        hashed by its content, like every other value."""
+        """State for the change detection. An array of a fill (read-only,
+        made or not) stands by its shape, its type and the number of the
+        fill, which no other fill shares; an array that someone made
+        writeable again, or handed in as such, is hashed by its content,
+        like every other value. Nothing is made on the host here."""
         out = [type(self).__name__]
         for key in sorted(self.__dict__):
-            if key.startswith("_lock") or key.startswith("_new_lock"):
+            if key in ("_lock", "_new_lock", "_dev", "_host"):
                 continue
-            val = self.__dict__[key]
-            if key in self._ARRAYS and isinstance(val, np.ndarray) and not val.flags.writeable:
-                out.append((key, (val.shape, str(val.dtype), self._fill_id)))
+            out.append((key, self._crepr_value(self.__dict__[key])))
+        for name, (_, dtype) in self._ARRAYS.items():
+            val = self._host.get(name)
+            if val is None:
+                if name == "pol_list" and self._dev["pol"] is None:
+                    dtype = np.float64
+                out.append((name, (self._shape(name), str(np.dtype(dtype)), self._fill_id)))
+            elif not val.flags.writeable:
+                out.append((name, (val.shape, str(val.dtype), self._fill_id)))
             else:
-                out.append((key, self._crepr_value(val)))
+                out.append((name, self._crepr_value(val)))
         return tuple(out)
+
+    def sections(self, Ns: int, Ne: int, device):
+        """Positions (n, nt, 3) and weights (n, nt) in f64 and wavelengths
+        (n,) in f32 of the rays Ns … Ne on ``device``: from the kept
+        tensors, or uploaded from the host arrays of a storage filled with
+        them. Both give the same numbers: the host's f64 sections are exact
+        images of the f32 values."""
+        if self._dev is not None:
+            p, w, wl = (self._dev[k][Ns:Ne].to(device) for k in ("p", "w", "wl"))
+            return p.to(torch.float64), w.to(torch.float64), wl
+
+        def up(a, dtype):
+            return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+        return (up(self.p_list[Ns:Ne], np.float64), up(self.w_list[Ns:Ne], np.float64),
+                up(self.wl_list[Ns:Ne], np.float32))
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -125,11 +210,12 @@ class RayStorage(BaseClass):
 
     @property
     def N(self) -> int:
-        return self.p_list.shape[0] if self.N_list.shape[0] and self.p_list.ndim == 3 else 0
+        shape = self._shape("p_list")
+        return shape[0] if self.N_list.shape[0] and len(shape) == 3 else 0
 
     @property
     def Nt(self) -> int:
-        return self.p_list.shape[1] if self.N else 0
+        return self._shape("p_list")[1] if self.N else 0
 
     # ------------------------------------------------------------------
     def source_sections(self, index: int = None):
@@ -137,8 +223,18 @@ class RayStorage(BaseClass):
         assert self.N, "ray_source_list has no rays stored."
         assert index is None or 0 <= index < len(self.N_list)
         Ns, Ne = self.B_list[index:index + 2] if index is not None else (0, self.N)
-        return (self.p_list[Ns:Ne, 0], self.s0_list[Ns:Ne], self.pol_list[Ns:Ne, 0],
-                self.w_list[Ns:Ne, 0], self.wl_list[Ns:Ne])
+        rows = slice(int(Ns), int(Ne))
+        return (self._read("p_list", rows, 0), self._read("s0_list", rows),
+                self._read("pol_list", rows, 0), self._read("w_list", rows, 0),
+                self._read("wl_list", rows))
+
+    def _read(self, name, rows, sec=None):
+        """``self.<name>[rows]`` or ``[rows, sec]``: from the host array
+        where it is made, else from the device, copying only these values."""
+        if self._dev is None or name in self._host:
+            a = self._array(name)
+            return a[rows] if sec is None else a[rows, sec]
+        return self._from_device(name, rows, sec)
 
     def source_numbers(self) -> np.ndarray:
         _, _, _, _, _, sn, _ = self.rays_by_mask(ret=[0, 0, 0, 0, 0, 1, 0])
@@ -183,19 +279,40 @@ class RayStorage(BaseClass):
         if ret[1]:
             if not isinstance(ch2, slice):
                 ch21 = np.where(ch2 < self.Nt - 1, ch2 + 1, ch2)
-                s = self.p_list[ch, ch21] - self.p_list[ch, ch2]
+                s = self._read("p_list", ch, ch21) - self._read("p_list", ch, ch2)
                 if normalize:
                     s = _normalize_rows(s)
             else:
-                s = self.p_list[ch, 1:] - self.p_list[ch, :-1]
+                p = self._read("p_list", ch, slice(None))
+                s = p[:, 1:] - p[:, :-1]
                 s = np.concatenate((s, np.zeros((s.shape[0], 1, 3))), axis=1)
                 if normalize:
                     s = _normalize_rows(s)
 
-        return (self.p_list[ch, ch2] if ret[0] else None,
+        return (self._read("p_list", ch, ch2) if ret[0] else None,
                 s,
-                self.pol_list[ch, ch2] if ret[2] else None,
-                self.w_list[ch, ch2] if ret[3] else None,
-                self.wl_list[ch] if ret[4] else None,
+                self._read("pol_list", ch, ch2) if ret[2] else None,
+                self._read("w_list", ch, ch2) if ret[3] else None,
+                self._read("wl_list", ch) if ret[4] else None,
                 snums,
-                self.n_list[ch, ch2] if ret[6] else None)
+                self._read("n_list", ch, ch2) if ret[6] else None)
+
+
+def _public_array(name):
+    def get(self):
+        return self._array(name)
+
+    def put(self, val):
+        # an array set by hand: the others are made first, then the
+        # storage holds host arrays only
+        if self._dev is not None:
+            for other in self._ARRAYS:
+                self._array(other)
+            self._dev = None
+        self._host[name] = val
+    return property(get, put, doc=f"``{name}``: a host array, made at its first read.")
+
+
+for _name in RayStorage._ARRAYS:
+    setattr(RayStorage, _name, _public_array(_name))
+del _name

@@ -4,11 +4,15 @@ Counterpart of ``optrace_tpu/tracer/raytracer.py``: geometry checks with
 sampled collision detection and the sequential trace with INFOS warning
 counters. The trace runs eagerly on one device (``device=None`` is the CUDA
 device; the CPU only on request), rays are generated on that device from a
-``torch.Generator``, and the stored sections come back as host numpy arrays
-in :class:`RayStorage`. The f32 tensors of the last trace also stay on the
-device: ``detector_image``, ``detector_spectrum``, ``source_image`` and
-``source_spectrum`` read them there, search the detector hits in f64 and bin
-them on the same device, and return host objects. ``iterative_render`` and
+``torch.Generator``, and the stored sections stay there, in
+:class:`RayStorage`, whose host arrays (``RT.rays.p_list`` …) are made at
+their first read. What a trace needs besides the rays (its steps, their
+prepared runs and the sources' samplers) is kept for each scene and ray
+count, as the JAX package keeps a compiled trace (:meth:`Raytracer._trace_entry`).
+``detector_image``, ``detector_spectrum``, ``source_image`` and
+``source_spectrum`` read the sections on the device, search the detector
+hits in f64 and bin them on the same device with sums that do not depend on
+the order of the rays, and return host objects. ``iterative_render`` and
 ``render_huge`` stream batch after batch through the fused render
 (``parallel/render.py``) and store no sections; ``render_huge(mesh=...)``
 shards each batch over the ranks of a ``torch.distributed`` device mesh.
@@ -16,7 +20,7 @@ shards each batch over the ranks of a ``torch.distributed`` device mesh.
 sweeps the focus costs there (``analysis/focus.py``).
 """
 
-import warnings
+from collections import OrderedDict, namedtuple
 from enum import IntEnum
 from typing import Any
 
@@ -32,6 +36,7 @@ from ..geometry import (Group, Lens, IdealLens, Filter, Aperture, Detector, RayS
                         Surface, RingSurface, SlitSurface, SphericalSurface,
                         RectangularSurface, Point, Line)
 from ..image.render_image import RenderImage
+from ..ops.binning import block_sums
 from ..spectrum.refraction_index import RefractionIndex
 from ..spectrum.light_spectrum import LightSpectrum
 from ..analysis import focus
@@ -40,6 +45,13 @@ from ..utils.global_options import global_options
 from ..utils.property_checker import PropertyChecker as pc
 from ..utils.progress_bar import ProgressBar
 from ..utils.warnings import warning
+
+# what a trace of one scene and ray count needs besides its rays: the tracing
+# elements and sources it was built from (kept, so that no object the
+# snapshot names by identity can be freed and replaced unnoticed), the steps,
+# their prepared runs and the function that draws the rays
+_TraceEntry = namedtuple("_TraceEntry", "elements sources steps plans source_fn")
+TRACE_CACHE_SIZE = 32       # entries of the trace cache, as in the JAX package
 
 
 class Raytracer(Group):
@@ -74,8 +86,7 @@ class Raytracer(Group):
         self._ignore_geometry_error = False
         self.geometry_error = False
         self._last_trace_snapshot = None
-        self._compiled = None       # (elements, snapshot key, steps, RunPlans) of the last trace
-        self._dev_sections = None   # (rays.p_list, p, w, wl): the last trace's f32 device tensors
+        self._trace_cache = OrderedDict()      # (scene snapshot, device, N) -> _TraceEntry, LRU
         self.fault_pos = np.array([])
         self._seed_counter = 0
 
@@ -107,7 +118,7 @@ class Raytracer(Group):
     def clear(self) -> None:
         super().clear()
         self.rays.__init__()
-        self._dev_sections = None
+        self._trace_cache.clear()
 
     # ------------------------------------------------------------------
     # snapshots / change detection
@@ -134,11 +145,8 @@ class Raytracer(Group):
         return diff
 
     def check_if_rays_are_current(self) -> bool:
-        current = self._last_trace_snapshot is not None and not self.compare_property_snapshot(
+        return self._last_trace_snapshot is not None and not self.compare_property_snapshot(
             self._last_trace_snapshot, self.tracing_snapshot())["Any"]
-        if not current:
-            self._dev_sections = None       # stale sections are of no use on the device either
-        return current
 
     # ------------------------------------------------------------------
     # geometry checks
@@ -306,25 +314,36 @@ class Raytracer(Group):
                                        pos_host=ph(el.front)))
         return steps
 
-    def _trace_steps(self):
-        """The step list of :meth:`trace` and the prepared runs that go
-        with it (``trace_core.RunPlans``). Both are kept from one trace to
-        the next and built anew as soon as the scene differs: another
-        element object in the list, or another snapshot of the lenses,
-        filters, apertures, outline, ambient medium or device (the change detector
-        that ``check_if_rays_are_current`` trusts). The kept elements stay
-        referenced, so no object that the snapshot names by identity can be
-        freed and replaced unnoticed."""
+    def _trace_entry(self, N: int) -> _TraceEntry:
+        """Steps, prepared runs and ray source function of a trace of N rays
+        through the scene as it is now: the counterpart of the JAX
+        package's ``_get_trace_fn``. An entry is kept for each key, the
+        snapshot of the lenses, filters, apertures, ray sources, ambient
+        medium and outline, the trace settings, the rays a source draws
+        (``rays.N_list``, set by ``rays.init``), the device and N, in a
+        least-recently-used cache of :data:`TRACE_CACHE_SIZE` entries that
+        evicts one oldest entry at a time (``clear()`` empties it). An
+        entry also holds the element and source objects it was built from,
+        and is built anew when another object stands in their place. The
+        entries hold tables (kB to MB), never rays."""
         elements = self._tracing_elements()[:-1]    # the end absorber follows from the outline
+        sources = list(self.ray_sources)
         snap = self.tracing_snapshot()
-        key = (snap["Lenses"], snap["Filters"], snap["Apertures"], snap["Ambient"],
-               str(self.device))
-        kept = self._compiled
-        if (kept is None or kept[1] != key or len(kept[0]) != len(elements)
-                or any(a is not b for a, b in zip(kept[0], elements))):
-            steps = self._build_steps()
-            kept = self._compiled = (elements, key, steps, RunPlans(steps))
-        return kept[2], kept[3]
+        key = (tuple(snap["Lenses"]), tuple(snap["Filters"]), tuple(snap["Apertures"]),
+               tuple(snap["RaySources"]), tuple(snap["Ambient"]), tuple(snap["TraceSettings"]),
+               tuple(int(n) for n in self.rays.N_list), str(self.device), int(N))
+        entry = self._trace_cache.get(key)
+        if entry is not None and len(entry.elements) == len(elements) \
+                and all(a is b for a, b in zip(entry.elements + entry.sources, elements + sources)):
+            self._trace_cache.move_to_end(key)
+            return entry
+        self._trace_cache.pop(key, None)
+        while len(self._trace_cache) >= TRACE_CACHE_SIZE:
+            self._trace_cache.popitem(last=False)
+        steps = self._build_steps()
+        entry = self._trace_cache[key] = _TraceEntry(elements, sources, steps, RunPlans(steps),
+                                                     self._make_source_fn(N))
+        return entry
 
     def _make_source_fn(self, N: int, device=None):
         """Ray generation for all sources with static per-source counts:
@@ -358,37 +377,25 @@ class Raytracer(Group):
                                "render, or increase Raytracer.MAX_RAY_STORAGE_RAM.")
 
         bar = ProgressBar("Raytracing: ", 3)
-        self._dev_sections = None
         self.rays.init(self.ray_sources, N, nt, self.no_pol, seed=self._seed_counter)
-
-        steps, plans = self._trace_steps()
-        source_fn = self._make_source_fn(N)
+        entry = self._trace_entry(N)
         bar.update()
 
         self._seed_counter += 1
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._seed_counter)
         with torch.no_grad():
-            p, s, pols, w, wl = source_fn(gen)
-            out = trace_bundle(steps, self.n0, tuple(float(v) for v in self.outline),
+            p, s, pols, w, wl = entry.source_fn(gen)
+            out = trace_bundle(entry.steps, self.n0, tuple(float(v) for v in self.outline),
                                p, s, pols, w, wl, self.no_pol, self.use_hurb, gen=gen,
-                               hurb_factor=float(self.HURB_FACTOR), plans=plans)
-        kept = (out["p"], out["w"], out["wl"])
-        out = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
-               for k, v in out.items() if k in ("p", "w", "pol", "n", "wl", "infos")}
-        bar.update()
-
-        s0 = out["p"][:, 1] - out["p"][:, 0]
-        norm = np.linalg.norm(s0, axis=-1, keepdims=True)
-        with np.errstate(invalid="ignore", divide="ignore"):
-            s0 = np.where(norm > 0, s0 / norm, s0)
-        self.rays.fill(out["p"], out["w"], out["pol"], out["n"], out["wl"], s0)
+                               hurb_factor=float(self.HURB_FACTOR), plans=entry.plans)
+        # the sections stay on the device: the storage makes its host arrays
+        # at their first read
+        self.rays.fill(out["p"], out["w"], out["pol"], out["n"], out["wl"])
         self.rays.lock()
-        # the device tensors belong to this very host array: a storage that
-        # is filled anew by other means no longer matches them
-        self._dev_sections = (self.rays.p_list, *kept)
-
-        self._msgs = np.asarray(out["infos"], dtype=int)
+        self._msgs = out["infos"].cpu().numpy().astype(int)      # the one copy: waits for the trace
+        del out
+        bar.update()
         self._show_messages(N)
         bar.finish()
 
@@ -508,22 +515,8 @@ class Raytracer(Group):
     def _sections(self, Ns: int, Ne: int):
         """Stored sections of the rays Ns … Ne on the raytracer's device:
         positions (n, nt, 3) and weights (n, nt) in f64, wavelengths (n,)
-        in f32. They come from the tensors that :meth:`trace` kept; a
-        storage that was filled by other means is uploaded. Both give the
-        same numbers: the host's f64 sections are exact images of the f32
-        values on the device."""
-        kept = self._dev_sections
-        if kept is not None and kept[0] is self.rays.p_list:
-            p, w, wl = (t[Ns:Ne] for t in kept[1:])
-            return p.to(torch.float64), w.to(torch.float64), wl
-        self._dev_sections = None
-
-        def up(a, dtype):
-            with warnings.catch_warnings():     # the stored arrays are read-only, and only read here
-                warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-                return torch.as_tensor(np.asarray(a, dtype=dtype), device=self.device)
-        return (up(self.rays.p_list[Ns:Ne], np.float64), up(self.rays.w_list[Ns:Ne], np.float64),
-                up(self.rays.wl_list[Ns:Ne], np.float32))
+        in f32 (``RayStorage.sections``)."""
+        return self.rays.sections(Ns, Ne, self.device)
 
     # ------------------------------------------------------------------
     # image / spectrum rendering
@@ -685,7 +678,6 @@ class Raytracer(Group):
         if iterations > 1:
             from ..parallel.render import make_fused_render_multi
             from ..parallel.checkpoint import batch_generator
-            self._dev_sections = None       # the stored trace has served; free its device memory
 
             def build(nrays, calls):
                 # pos goes INTO the config so make_fused_render_multi moves
@@ -918,6 +910,6 @@ class Raytracer(Group):
                 r = np.linspace(bounds[0], bounds[1], focus.SWEEP_SAMPLES)
                 vals = focus.cost_sweep(np.float32(r), q0f, mf, wf, method, n_px).cpu().numpy()
 
-            pos = ((q0 + m * z_best) * w[:, None]).sum(dim=0) / w.sum()
+            pos = block_sums((q0 + m * z_best) * w[:, None])[0] / block_sums(w[:, None])[0, 0]
         return res, dict(pos=tuple(pos.tolist()) + (z_best,), bounds=bounds, z=r, cost=vals,
                          N=N_use)

@@ -1,10 +1,11 @@
 """The stored sections that ``Raytracer.trace`` keeps on its device.
 
-``_hit_detector`` and ``_hit_source`` read the kept f32 tensors and cast
-them to f64; the host storage holds exact f64 images of the same f32
-values, so both ways give the same hits bit for bit. The tensors go with
-``clear()``, with the next trace, with a scene change (which still raises
-"Please retrace first") and when the host storage is filled by other means.
+``_hit_detector`` and ``_hit_source`` read the f32 tensors that the ray
+storage keeps and cast them to f64; a storage filled with host arrays holds
+exact f64 images of the same f32 values, so both ways give the same hits bit
+for bit. The tensors go with ``clear()``, with the next trace and when the
+storage is filled by other means; after a scene change (which still raises
+"Please retrace first") they stay, the storage's copy of the old trace.
 """
 
 import numpy as np
@@ -27,6 +28,17 @@ def traced():
     return RT
 
 
+def _host_storage(RT):
+    """Fill the storage with its own host arrays, as user code may: the
+    sections are then uploaded from the host."""
+    r = RT.rays
+    r._lock = False
+    r.fill(r.p_list, r.w_list, r.pol_list, r.n_list, r.wl_list, r.s0_list)
+    r.lock()
+    RT._last_trace_snapshot = RT.tracing_snapshot()
+    assert r._dev is None
+
+
 def _hits(RT, **kw):
     with otp.global_options.no_progress_bar():
         ph, w, wl, extent, proj, _, ill = RT._hit_detector("t", **kw)
@@ -35,8 +47,8 @@ def _hits(RT, **kw):
 
 def test_kept_tensors_are_the_trace(traced):
     RT = traced
-    ref, p, w, wl = RT._dev_sections
-    assert ref is RT.rays.p_list
+    p, w, wl = (RT.rays._dev[k] for k in ("p", "w", "wl"))
+    assert RT.rays._host == {}          # nothing made on the host yet
     assert p.dtype == w.dtype == wl.dtype == torch.float32 and p.device == RT.device
     assert p.shape == (N, RT.rays.Nt, 3) and w.shape == (N, RT.rays.Nt) and wl.shape == (N,)
     assert np.array_equal(p.double().numpy(), RT.rays.p_list)
@@ -47,10 +59,10 @@ def test_kept_tensors_are_the_trace(traced):
 def test_hits_from_kept_tensors_equal_the_host_path(traced, kw):
     RT = traced
     a = _hits(RT, **kw)
-    assert RT._dev_sections is not None
-    RT._dev_sections = None         # now the sections are uploaded from the host storage
+    assert RT.rays._dev is not None
+    _host_storage(RT)               # now the sections are uploaded from the host storage
     b = _hits(RT, **kw)
-    assert RT._dev_sections is None
+    assert RT.rays._dev is None
     for x, y in zip(a[:3], b[:3]):
         assert isinstance(x, torch.Tensor) and x.dtype == y.dtype and torch.equal(x, y)
     assert a[0].dtype == torch.float64 and a[2].dtype == torch.float32 and len(a[0]) > 100
@@ -61,7 +73,7 @@ def test_images_and_spectra_equal_both_ways(traced):
     RT = traced
     with otp.global_options.no_progress_bar():
         a = (RT.detector_image(), RT.source_image(), RT.detector_spectrum(), RT.source_spectrum())
-        RT._dev_sections = None
+        _host_storage(RT)
         b = (RT.detector_image(), RT.source_image(), RT.detector_spectrum(), RT.source_spectrum())
     assert np.array_equal(a[0].data, b[0].data) and np.array_equal(a[0].extent, b[0].extent)
     assert np.array_equal(a[1].data, b[1].data)
@@ -80,20 +92,21 @@ def test_automatic_extent_is_the_hits_bounding_box(traced):
 def test_tensors_are_dropped(traced, how):
     RT = traced
     go = otp.global_options
-    old = RT._dev_sections
+    old = RT.rays._dev
     if how == "clear":
         RT.clear()
-        assert RT._dev_sections is None and RT.rays.N == 0
+        assert RT.rays._dev is None and RT.rays.N == 0
     elif how == "retrace":
         with go.no_warnings(), go.no_progress_bar():
             RT.trace(N // 2)
-        assert RT._dev_sections[1] is not old[1] and RT._dev_sections[1].shape[0] == N // 2
-        assert RT._dev_sections[0] is RT.rays.p_list
+        assert RT.rays._dev["p"] is not old["p"] and RT.rays._dev["p"].shape[0] == N // 2
+        assert RT.rays._host == {}
     elif how == "scene_change":
         RT.lenses[0].move_to([0, 0, 0.1])
         with pytest.raises(RuntimeError, match="Please retrace first"), go.no_progress_bar():
             RT.detector_image()
-        assert RT._dev_sections is None
+        # the storage's only copy of the old trace: still read through RT.rays
+        assert RT.rays._dev is old and RT.rays.p_list.shape[0] == N
         with pytest.raises(RuntimeError, match="Please retrace first"), go.no_progress_bar():
             RT.source_image()
     else:
@@ -108,7 +121,7 @@ def test_tensors_are_dropped(traced, how):
         r.lock()
         RT._last_trace_snapshot = RT.tracing_snapshot()
         ph = _hits(RT)[0]
-        assert RT._dev_sections is None
+        assert RT.rays._dev is None
         # the detector lies on the last segment, whose end moved: the hits moved with it
         assert float(ph[:, 0].mean() - before[:, 0].mean()) > 0.05
         assert abs(float(ph[:, 1].mean() - before[:, 1].mean())) < 0.01
@@ -121,13 +134,13 @@ def test_a_changed_filter_rebuilds_the_steps():
     go = otp.global_options
     with go.no_warnings(), go.no_progress_bar():
         RT.trace(2000)
-        steps, plans = RT._trace_steps()
-        assert RT._trace_steps()[0] is steps
+        steps, plans = RT._trace_entry(2000)[2:4]
+        assert RT._trace_entry(2000).steps is steps
         p_before = RT.detector_image().power()
         RT.filters[0].spectrum = otp.TransmissionSpectrum("Constant", val=0.25)
         with pytest.raises(RuntimeError, match="Please retrace first"):
             RT.detector_image()
-        steps2, plans2 = RT._trace_steps()
+        steps2, plans2 = RT._trace_entry(2000)[2:4]
         assert steps2 is not steps and plans2 is not plans
         assert steps2[4].spectrum_fn is RT.filters[0].spectrum
         RT.trace(2000)

@@ -77,15 +77,18 @@ def jax_side():
     rays = [jnp.asarray(a) for a in _rays()]
     outline = tuple(float(v) for v in RT.outline)
 
-    def render(rho):
+    def hits(rho):
         params = [dict(st.sfns.params) for st in steps]
         params[0] = dict(params[0], rho=rho)
         steps_p = [st._replace(sfns=st.sfns._replace(params=pp)) for st, pp in zip(steps, params)]
         out = jtrace_bundle(steps_p, RT.n0, outline, *rays, True, False)
         ph, wsel, ish, _ = jdetector_hits(sfns, float(dsurf.z_min), out["p"], out["w"],
                                           segment_mask=seg)
-        return jbinning.bin_xyzw_soft(ph[:, 0], ph[:, 1], jnp.where(ish, wsel, 0.0), out["wl"],
-                                      NX, NX, EXT)
+        return ph[:, 0], ph[:, 1], jnp.where(ish, wsel, 0.0), out["wl"]
+
+    def render(rho):
+        return jbinning.bin_xyzw_soft(*hits(rho), NX, NX, EXT)
+    render.hits = hits
 
     def loss(rho):
         img = render(rho)
@@ -150,12 +153,19 @@ def test_bin_xyzw_soft_image_and_gradients_equal_jax():
 def test_render_at_changed_rho_equals_jax(jax_side, port_side, drho):
     """A render at a changed curvature without a gradient traces the new
     surface (before the repair the runs kept the constants of params0),
-    and equals the JAX package's render at the same curvature."""
+    and equals the JAX package's render at the same curvature: its trace
+    and detector hits, binned by its own soft binning in f64. The port's
+    sum is order-free and exact to f32 rounding; the JAX package's f32
+    scatter, in ray order, is off by up to 2.6e-6 of the spot's peak here,
+    beyond this test's 1e-6, so its f64 scatter is the reference."""
     jrender, _, rho0 = jax_side
     render, params0, rays = port_side
     assert [k for k, _ in ttc._partition_runs(_scene(otp)._build_steps(), [])][0] == "run"
     rho = np.float32(rho0 + drho)
-    img_j = np.asarray(jrender(jnp.float32(rho)))
+    jhits = [np.asarray(a, np.float64) for a in jrender.hits(jnp.float32(rho))]
+    with jax.enable_x64(True):
+        img_j = np.asarray(jbinning.bin_xyzw_soft(*map(jnp.asarray, jhits), NX, NX, EXT))
+    assert img_j.dtype == np.float64
     with torch.no_grad():
         img_t = render.trace_rays(_with_rho(params0, torch.tensor(rho)), *rays).numpy()
         img_0 = render.trace_rays(params0, *rays).numpy()

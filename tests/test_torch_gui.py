@@ -265,7 +265,7 @@ def test_retrace_equals_trace(gui):
     assert RT.rays.N == gui.ray_count == 5000
     np.testing.assert_array_equal(RT.rays.p_list, p_gui)
     np.testing.assert_array_equal(RT.rays.w_list, w_gui)
-    assert RT._dev_sections[1].device.type == RT.device.type == "cpu"
+    assert RT.rays._dev["p"].device.type == RT.device.type == "cpu"
 
 
 # ----------------------------------------------------------------------

@@ -105,7 +105,7 @@ def test_action_button_retraces(igui):
     with go.no_progress_bar(), go.no_warnings():
         igui.panel.click_button("Retrace")
     assert igui.raytracer._seed_counter == seed + 1
-    assert igui.raytracer._dev_sections[1].device == igui.raytracer.device
+    assert igui.raytracer.rays._dev["p"].device == igui.raytracer.device
 
 
 def test_value_textbox(igui):

@@ -40,7 +40,7 @@ def traced():
         RT_j.trace(N)
     RT_t = build(otp, device="cpu")
     _copy_trace(RT_j, RT_t)
-    assert RT_t._dev_sections is None       # the upload path
+    assert RT_t.rays._dev is None           # the upload path
     return RT_j, RT_t
 
 

@@ -3,8 +3,9 @@
 
     python3 tools/profile_port.py [--batches 4] [--rays 1000000] [--fuse-planar] [--out profile.json]
     python3 tools/profile_port.py --kernel-times [--root DIR] [--binning-only] [--rays 1000000]
-    python3 tools/profile_port.py --iterative [--batches 4] [--rays 1000000]
-    python3 tools/profile_port.py --design [--batches 4] [--rays 1000000]
+    python3 tools/profile_port.py --iterative [--batches 4] [--rays 1000000] [--root DIR]
+    python3 tools/profile_port.py --trace [--batches 4] [--rays 1000000] [--root DIR]
+    python3 tools/profile_port.py --design [--batches 4] [--rays 1000000] [--root DIR]
 
 Renders the double Gauss (the scene of chip_smoke.py) under torch.profiler
 and prints one JSON object: wall time per batch, the device's busy time and
@@ -35,9 +36,15 @@ this, this, earlier), one after the other on the same machine.
 with two detector positions over ``--batches`` batches of ``--rays`` rays:
 wall ms of the whole call and a batch, the device's busy ms and idle share,
 device launches and kernel 1 and 2 launches a batch, and the parts of the
-first (stored) batch timed on their own: ``trace`` with its copy to the
-host, ``detector_image`` from the sections kept on the card, and one fused
-batch with two sinks.
+first (stored) batch timed on their own: ``trace``, ``detector_image`` from
+the sections kept on the card, and one fused batch with two sinks.
+
+``--trace`` times ``Raytracer.trace`` of the double Gauss without and with
+polarization at ``--rays`` rays, ``--batches`` times each after a warm-up:
+the host clock of the call (which waits for its INFOS counters, so for the
+trace) and of the first read of all six arrays of ``RT.rays`` after it. With
+``--root`` it times an earlier tree the same way (where ``trace`` copied the
+sections to the host itself, that read finds them made).
 
 ``--design`` profiles the design render of chip_smoke.py's design phase
 (``tracer/diff.py:make_parameterized_render`` of the double Gauss, 189²
@@ -45,7 +52,8 @@ soft-binned pixels over ±0.3 mm, ``spot_loss``): one ``value_and_grad`` step
 with respect to the 14 curvatures (the runs take the plain loop) and one
 evaluation of the loss alone (the runs take kernel 1), each ``--batches``
 times: wall ms, the device's busy ms and idle share, device launches, and
-the launches of kernel 1 and of the plain loop an evaluation.
+the launches of kernel 1 and of the plain loop an evaluation, and the peak
+device memory of an evaluation above what was allocated before it.
 
 ``--sass`` builds the kernels and counts, for every kernel in the libraries,
 the instructions of its disassembly (``cuobjdump -sass``) by opcode: loads
@@ -265,8 +273,36 @@ def iterative_profile(args, smi):
                device_launches_per_batch=count / args.batches,
                conic_run_launches_per_batch=launches_1 / args.batches,
                bin_xyzw_launches_per_batch=launches_2 / args.batches,
-               parts_ms=dict(trace_with_host_copy=trace_ms, detector_image_from_kept_sections=image_ms,
+               parts_ms=dict(trace=trace_ms, detector_image_from_kept_sections=image_ms,
                              fused_batch_two_sinks=fused_ms))
+    print(json.dumps(res))
+    return 0
+
+
+def trace_times(args, smi):
+    """``Raytracer.trace`` and the first full read of ``RT.rays`` by the host's clock."""
+    import torch
+    import optrace_tpu_torch as ot
+    from chip_smoke import double_gauss_scene
+
+    res = dict(gpu=smi, scene="double_gauss", entry="Raytracer.trace", rays=args.rays,
+               package=str(pathlib.Path(ot.__file__).resolve().parent))
+    for no_pol in (True, False):
+        RT = double_gauss_scene(ot, no_pol=no_pol)
+        RT.trace(20000)
+        RT.trace(args.rays)                 # builds the kernels, warms up
+        trace_s, read_s = [], []
+        for _ in range(args.batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            RT.trace(args.rays)
+            t1 = time.perf_counter()
+            for name in ("p_list", "s0_list", "n_list", "pol_list", "w_list", "wl_list"):
+                getattr(RT.rays, name)
+            trace_s.append(t1 - t0)
+            read_s.append(time.perf_counter() - t1)
+        res["no_pol" if no_pol else "pol"] = dict(trace_s=trace_s, first_full_read_s=read_s)
+        del RT
     print(json.dumps(res))
     return 0
 
@@ -305,12 +341,15 @@ def design_profile(args, smi):
         evaluate(grad)                       # builds the kernels, warms up
         torch.cuda.synchronize()
         cuda_run.reset_launch_counts()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         with cs.PlainRunCounter() as plain:
             t0 = time.perf_counter()
             for _ in range(args.batches):
                 evaluate(grad)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / args.batches
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
         launches_1, launches_plain = cuda_run.conic_run.launches, plain.calls
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(args.batches):
@@ -325,7 +364,7 @@ def design_profile(args, smi):
             print("profile_port: the profiler recorded no device time", file=sys.stderr)
             return 1
         busy_ms = busy_us / 1e3 / args.batches
-        out[label] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+        out[label] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, peak_memory_GB=peak_gb,
                           device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
                           device_launches=count / args.batches,
                           conic_run_launches=launches_1 / args.batches,
@@ -383,6 +422,8 @@ def main():
                     help="with --kernel-times: time the binning kernel alone")
     ap.add_argument("--iterative", action="store_true",
                     help="profile Raytracer.iterative_render over --batches batches of --rays rays")
+    ap.add_argument("--trace", action="store_true",
+                    help="time Raytracer.trace and the first full read of RT.rays")
     ap.add_argument("--design", action="store_true",
                     help="profile a value_and_grad step and a loss-only evaluation of the design render")
     ap.add_argument("--sass", action="store_true",
@@ -412,6 +453,8 @@ def main():
         return kernel_times(args, smi)
     if args.iterative:
         return iterative_profile(args, smi)
+    if args.trace:
+        return trace_times(args, smi)
     if args.design:
         return design_profile(args, smi)
     RT = double_gauss_scene(ot, no_pol=True)
