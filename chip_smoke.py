@@ -14,7 +14,11 @@ its step captured against the same batches eager), runs the stored trace of
 the double Gauss and of the 57-surface stack (its sections stay on the card:
 ``trace`` with no host read, then the first full read of ``RT.rays``; device
 busy ms and idle share; no host array made by the outputs; a cache hit
-against a miss and against a fresh raytracer), holds spectra, focus searches
+against a miss and against a fresh raytracer), carries a stored trace of the
+double Gauss through ``detector_image`` to ``RenderImage.get`` in every mode
+at 945² and 315² (phase ``read_path``: the colour on the card, against the
+same image's ``get`` on the CPU; the path split stage by stage; a kept
+geometry outcome that replays a collision's warnings), holds spectra, focus searches
 and the design image bit for bit over two calls and over the same rays in a
 permuted order (phase ``repeatable``), traces
 an asphere stack and carries its stored trace through ``detector_image`` to
@@ -2140,6 +2144,191 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
     return launches
 
 
+# the read path: RenderImage.get on the card against the same image's get on
+# the CPU. At 945² the block mean is a copy and the colour differs by the two
+# devices' f64 transcendental functions (a few ulp); at 315² also by the
+# order of the block mean's sums
+GET_SIDES = (945, 315)
+TOL_GET_REL = 1e-12             # of each mode's largest value on the CPU
+TOL_GAMUT_EDGE = 1e-12          # a pixel may change its gamut mask only this close to its edge
+HUE_CHROMA_SHARE = 1e-6         # hue is compared where chroma is above this share of its largest
+
+
+def _profile_port():
+    """``tools/profile_port.py`` of this checkout, whose ``StageTimer``
+    splits a call stage by stage."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "profile_port.py")
+    spec = importlib.util.spec_from_file_location("profile_port", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class ColourDevices:
+    """The device type of every tensor that ``RenderImage.get`` hands to the
+    colour conversions while the ``with`` block runs."""
+
+    NAMES = ("xyz_to_srgb", "outside_srgb_gamut", "xyz_to_luv", "luv_hue", "luv_chroma", "luv_saturation")
+
+    def __enter__(self):
+        from optrace_tpu_torch import color
+        self.mod, self.real, self.devices = color, {k: getattr(color, k) for k in self.NAMES}, []
+        for k, fn in self.real.items():
+            def spy(x, *a, _fn=fn, **kw):
+                self.devices.append(x.device.type)
+                return _fn(x, *a, **kw)
+            setattr(color, k, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.real.items():
+            setattr(self.mod, k, fn)
+
+
+def get_card_vs_cpu(img, gets):
+    """Each (mode, side) of ``gets`` (host images computed on the card)
+    against the same image's ``get`` on the CPU: the largest difference
+    relative to the mode's largest value, and the pixels outside the
+    tolerances (the gamut mask's only where a pixel lies farther than
+    TOL_GAMUT_EDGE from the edge; hue as an angle, where chroma is above
+    HUE_CHROMA_SHARE of its largest)."""
+    import numpy as np
+    import torch
+    from optrace_tpu_torch import color
+    cpu = img.copy()
+    cpu._device = torch.device("cpu")
+    rows = {}
+    for (mode, side), card in gets.items():
+        a, b = card.data, cpu.get(mode, side).data
+        scale = float(np.abs(b).max()) or 1.0
+        d = np.abs(a - b)
+        if mode == "Hue (CIELUV)":
+            chroma = cpu.get("Chroma (CIELUV)", side).data
+            d = np.where(chroma > HUE_CHROMA_SHARE * chroma.max(), np.minimum(d, 360.0 - d), 0.0)
+            scale = 360.0
+        row = dict(max_abs=float(d.max()), max_rel_to_largest=float(d.max()) / scale, largest=scale,
+                   beyond=int((d > TOL_GET_REL * scale).sum()))
+        if mode == "Outside sRGB Gamut":
+            stack = torch.from_numpy(cpu._data)
+            f = cpu.MAX_IMAGE_SIDE // side
+            stack = cpu._block_mean(stack, f)[:, :, :3].contiguous()
+            rgbl = color.xyz_to_srgb_linear(stack, normalize=True, rendering_intent="Ignore").numpy()
+            edge = np.abs(rgbl.min(axis=-1) + 1e-6)
+            row.update(flipped=int((a != b).sum()), beyond=int(((a != b) & (edge > TOL_GAMUT_EDGE)).sum()),
+                       lit=int(b.sum()))
+        rows[f"{mode}@{side}"] = row
+    return rows
+
+
+def geometry_replay(ot):
+    """A scene whose second lens overlaps the first, traced twice on the
+    card: the second check is a hit of the kept outcome and raises the same
+    warnings, sets the same state and makes no fresh check."""
+    import warnings
+    import numpy as np
+    from optrace_tpu_torch.tracer.raytracer import Raytracer
+    RT = ot.Raytracer(outline=[-5, 5, -5, 5, -5, 40])
+    RT.add(ot.RaySource(ot.CircularSurface(r=1), pos=[0, 0, 0], divergence="Lambertian", div_angle=5))
+    for z in (10.0, 10.6):
+        RT.add(ot.Lens(ot.SphericalSurface(r=3, R=20), ot.SphericalSurface(r=3, R=-20),
+                       n=ot.presets.refraction_index.BK7, pos=[0, 0, z], d=1.5))
+    fresh, real = [], Raytracer._geometry_outcome
+
+    def counted(self, elements):
+        fresh.append(1)
+        return real(self, elements)
+    Raytracer._geometry_outcome = counted
+    go = ot.global_options
+    shown, go.show_warnings = go.show_warnings, True
+    runs = []
+    try:
+        for _ in range(2):
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                RT.trace(N_RAYS)
+                t = time.perf_counter() - t0
+            runs.append(([str(w.message) for w in rec], RT.geometry_error, np.array(RT.fault_pos), t))
+    finally:
+        Raytracer._geometry_outcome = real
+        go.show_warnings = shown
+    (m0, e0, f0, t0_), (m1, e1, f1, t1_) = runs
+    assert len(fresh) == 1 and m0 == m1 and e0 and e1 and np.array_equal(f0, f1), (fresh, m0, m1)
+    assert m0[0].startswith("Detected collision") and m0[-1] == "ABORTED TRACING" and f0.shape[1] == 3
+    return dict(warnings=m0, fault_positions=len(f0), fresh_checks=len(fresh),
+                seconds_fresh=t0_, seconds_hit=t1_)
+
+
+def read_path_phase(ot, smi, dg_runs, n=N_RAYS):
+    """The stored trace's read path of the double Gauss at 10⁶ rays, counters
+    set to 0 just before and read just after: ``trace`` (a cache hit) →
+    ``detector_image`` → ``get`` in every mode at 945² and 315², the colour
+    on the card (``ColourDevices``), each image against the same image's
+    ``get`` on the CPU; then the path split stage by stage
+    (``tools/profile_port.py:split_targets``) and a kept geometry outcome
+    that replays a collision's warnings."""
+    import numpy as np
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
+    from optrace_tpu_torch.image import render_image as render_image_mod
+    RT = double_gauss_scene(ot, no_pol=True)
+    RT.trace(n)
+    RT.detector_image().get("sRGB (Absolute RI)", 945)      # warm-up
+    modes = ot.RenderImage.image_modes
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with BinRecorder(render_image_mod) as rec, ColourDevices() as colour:
+        t0 = time.perf_counter()
+        RT.trace(n)
+        t_trace = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        img = RT.detector_image()
+        t_image = time.perf_counter() - t0
+        gets, get_s = {}, {}
+        for mode in modes:
+            for side in GET_SIDES:
+                t0 = time.perf_counter()
+                gets[(mode, side)] = img.get(mode, side)
+                get_s[f"{mode}@{side}"] = time.perf_counter() - t0
+    run_launches, bin_launches = conic_run.launches, bin_xyzw_cuda.launches
+    assert run_launches == len(dg_runs) and bin_launches == 1 and len(rec.calls) == 1, (run_launches, bin_launches)
+    colour_calls = sum(m not in ("Irradiance", "Illuminance") for m in modes) * len(GET_SIDES)
+    assert img.device.type == "cuda" and set(colour.devices) == {"cuda"}, colour.devices
+    assert len(colour.devices) >= colour_calls, (len(colour.devices), colour_calls)
+    for (mode, side), out in gets.items():
+        assert out.data.shape[:2] == (side, side) and np.isfinite(out.data).all(), (mode, side)
+    rgb = gets[("sRGB (Absolute RI)", 945)].data
+    assert 0.0 <= rgb.min() and rgb.max() > 0.5
+    vs_cpu = get_card_vs_cpu(img, gets)
+    # the split, stage by stage: a trace hit as it runs, detector_image and
+    # the get of sRGB at 945² with the card synchronized at every stage
+    pp = _profile_port()
+    targets = pp.split_targets()
+    split = dict(trace=pp.split_call(lambda: RT.trace(n), targets["trace"])[0],
+                 detector_image=pp.split_call(RT.detector_image, targets["detector_image"], sync=True)[0],
+                 get_srgb_945=pp.split_call(lambda: img.get("sRGB (Absolute RI)", 945), targets["get"],
+                                            sync=True)[0])
+    replay = geometry_replay(ot)
+    bin_row = check_binning(*rec.calls[0][:4], rec.calls[0][6], "bin_xyzw@read_path",
+                            Nx=rec.calls[0][4], Ny=rec.calls[0][5])
+    emit(dict(phase="read_path", gpu=smi, scene="double_gauss", N=n, no_pol=True,
+              entry="Raytracer.trace -> detector_image -> RenderImage.get (every mode at 945 and 315)",
+              launches=dict(conic_run=run_launches, bin_xyzw=bin_launches),
+              image_device=str(img.device), colour_devices=sorted(set(colour.devices)),
+              colour_calls=len(colour.devices), trace_seconds=t_trace, detector_image_seconds=t_image,
+              get_seconds=get_s, get_card_vs_cpu=vs_cpu,
+              tolerances=dict(rel_to_largest=TOL_GET_REL, gamut_edge=TOL_GAMUT_EDGE,
+                              hue_where_chroma_above_share=HUE_CHROMA_SHARE),
+              split=split, geometry_replay=replay))
+    bad = {k: r for k, r in vs_cpu.items() if r["beyond"]}
+    assert not bad, f"RenderImage.get on the card differs from the CPU's: {bad}"
+    del RT, img, gets, rec
+    return ({"conic_run[nopol,store]@read_path": run_launches, "bin_xyzw@read_path": bin_launches},
+            {"bin_xyzw@read_path": bin_row})
+
+
 class OldSums:
     """While the ``with`` block runs, the order-free sums take the form they
     had before, for the record: the histograms (``ops/binning.py:scatter_sum``)
@@ -2484,6 +2673,9 @@ def main():
 
     # ---- 4. stored trace: on the card until it is read; the trace cache ----
     launches.update(trace_phase(ot, smi, dg_runs))
+    torch.cuda.empty_cache()
+    read_launches, read_rows = read_path_phase(ot, smi, dg_runs)
+    launches.update(read_launches)
     torch.cuda.empty_cache()
     repeatable_phase(ot, smi)
     torch.cuda.empty_cache()
@@ -3109,6 +3301,8 @@ def main():
     rows["conic_run[pol,store]@gui"] = main_shapes["conic_run[pol,store]"]
     rows["conic_run[nopol,store]@stack56"] = stack_store
     rows.update(gui_rows)
+    rows["conic_run[nopol,store]@read_path"] = main_shapes["conic_run[nopol,store]"]
+    rows.update(read_rows)
     sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
                "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),
                "conic_step": ("conic_step.cu", "optrace_tpu/ops/pallas_trace.py:152")}

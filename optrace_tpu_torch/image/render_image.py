@@ -6,10 +6,12 @@ resolution 945×(945·ratio) into (Ny, Nx, 4) channels X, Y, Z, W(=power);
 modes; Airy-disc Rayleigh filter; .npz save/load.
 
 The binning runs on a device: on a CUDA device through the hand-written
-histogram kernel (``ops/cuda_binning.py``), whose f32 image is added into
-the f64 image that this class holds on the host. The class is additive, so
-batched renders just sum into ``_data``. The colour conversions of ``get``
-run on the host in f64.
+histogram kernel (``ops/cuda_binning.py``), whose f32 image is widened to
+f64 there and copied once into the f64 image that this class holds on the
+host. The class is additive, so batched renders just sum into ``_data``.
+An image remembers the device it was rendered on (``device``), and ``get``
+runs the block mean and the colour conversions there, in f64, as the JAX
+package runs them on its default device; it returns host images.
 """
 
 from typing import Any
@@ -31,6 +33,24 @@ from ..utils.device import resolve_device
 from ..utils.global_options import global_options
 
 
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a writeable host array: the CPU tensor's own memory, or
+    one copy of a card's tensor into pinned host memory."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out.numpy()
+
+
+def _sum_into_zeros(shape, t: torch.Tensor) -> np.ndarray:
+    """0 + ``t`` in f64 on ``t``'s device, as a host array: the bits of
+    ``t`` added into a new image of zeros."""
+    acc = torch.zeros(shape, dtype=torch.float64, device=t.device)
+    acc += t.detach()
+    return _host_array(acc)
+
+
 class RenderImage(BaseClass):
 
     EPS: float = 1e-9
@@ -50,6 +70,7 @@ class RenderImage(BaseClass):
         self._extent0 = self.extent.copy()
         self._data = None
         self._limit = None
+        self._device = None         # where get() computes: set by render, _accumulate and load
         self.projection = projection
         super().__init__(**kwargs)
         self._new_lock = True
@@ -85,6 +106,13 @@ class RenderImage(BaseClass):
     def limit(self):
         return self._limit
 
+    @property
+    def device(self) -> torch.device:
+        """The device that the image was rendered on, where :meth:`get`
+        computes; an image rendered or loaded without one takes the CUDA
+        device (``utils.device.resolve_device``)."""
+        return resolve_device(self._device)
+
     def power(self) -> float:
         self.__check_for_image()
         return float(np.sum(self._data[:, :, 3]))
@@ -95,37 +123,44 @@ class RenderImage(BaseClass):
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _block_mean(arr: np.ndarray, f: int) -> np.ndarray:
+    def _block_mean(arr: torch.Tensor, f: int) -> torch.Tensor:
         """Downscale by exact f×f bin joining (all SIZES divide 945, so the
-        reduction is lossless block averaging — no interpolation)."""
+        reduction is lossless block averaging — no interpolation), on the
+        tensor's device. On the CPU through numpy's mean, whose order of
+        sums the host code of both packages has; on a card its own."""
         if f == 1:
-            return arr.copy()
+            return arr.clone()
         ny, nx = arr.shape[0] // f, arr.shape[1] // f
-        return arr[:ny * f, :nx * f].reshape(ny, f, nx, f, -1).mean(axis=(1, 3))
+        blocks = arr[:ny * f, :nx * f].reshape(ny, f, nx, f, -1)
+        if arr.device.type == "cpu":
+            return torch.from_numpy(blocks.numpy().mean(axis=(1, 3)))
+        return blocks.mean(dim=(1, 3))
 
-    def _scalar_channel(self, mode: str, stack: np.ndarray) -> np.ndarray:
+    def _scalar_channel(self, mode: str, stack: torch.Tensor) -> torch.Tensor:
         """Extract one physical/colorimetric quantity from a downsampled
-        XYZW stack. Irradiance/illuminance divide by the *full-resolution*
-        pixel area: block-averaged power per bin keeps that normalization."""
+        XYZW stack, on its device. Irradiance/illuminance divide by the
+        *full-resolution* pixel area: block-averaged power per bin keeps
+        that normalization."""
         if mode == "Irradiance":
             return stack[:, :, 3] / self.Apx
         if mode == "Illuminance":
             return self.K / self.Apx * stack[:, :, 1]
 
-        xyz = torch.from_numpy(np.ascontiguousarray(stack[:, :, :3]))
+        xyz = stack[:, :, :3].contiguous()
         if mode == "Outside sRGB Gamut":
-            return color.outside_srgb_gamut(xyz).numpy().astype(np.float64)
+            return color.outside_srgb_gamut(xyz).to(torch.float64)
 
         luv = color.xyz_to_luv(xyz)
         per_luv = {"Lightness (CIELUV)": lambda: luv[:, :, 0],
                    "Hue (CIELUV)": lambda: color.luv_hue(luv),
                    "Chroma (CIELUV)": lambda: color.luv_chroma(luv),
                    "Saturation (CIELUV)": lambda: color.luv_saturation(luv)}
-        return per_luv[mode]().numpy().copy()
+        return per_luv[mode]()
 
     def get(self, mode: str, N: int = 315, L_th: float = 0,
             chroma_scale: float = None):
-        """Convert to a display image.
+        """Convert to a display image, on the image's device (:attr:`device`),
+        in f64; the result is a host image.
 
         N: requested pixel count of the smaller side; snapped to the nearest
         entry of SIZES, then the stored 945-px stack is block-averaged down.
@@ -138,19 +173,20 @@ class RenderImage(BaseClass):
             raise ValueError(f"N needs to be between 1 and {self.MAX_IMAGE_SIDE}")
 
         side = min(self.SIZES, key=lambda s: abs(s - N))
-        stack = self._block_mean(self._data, self.MAX_IMAGE_SIDE // side)
+        data = torch.from_numpy(np.asarray(self._data, dtype=np.float64)).to(self.device)
+        stack = self._block_mean(data, self.MAX_IMAGE_SIDE // side)
 
         meta = dict(extent=self.extent, projection=self.projection, desc=self.desc,
                     long_desc=self.long_desc, quantity=mode, limit=self.limit)
 
         if mode in ("sRGB (Absolute RI)", "sRGB (Perceptual RI)"):
             intent = "Absolute" if "Absolute" in mode else "Perceptual"
-            rgb = color.xyz_to_srgb(torch.from_numpy(np.ascontiguousarray(stack[:, :, :3])),
-                                    rendering_intent=intent, L_th=L_th,
-                                    chroma_scale=chroma_scale).numpy()
-            return RGBImage(np.clip(rgb, 0, 1), **meta)
+            rgb = color.xyz_to_srgb(stack[:, :, :3].contiguous(), rendering_intent=intent, L_th=L_th,
+                                    chroma_scale=chroma_scale)
+            # + 0.0 turns a -0.0 that clamp keeps into the +0.0 of np.clip
+            return RGBImage(_host_array(torch.clamp(rgb, 0.0, 1.0) + 0.0), **meta)
 
-        return ScalarImage(self._scalar_channel(mode, stack), **meta)
+        return ScalarImage(_host_array(self._scalar_channel(mode, stack)), **meta)
 
     # ------------------------------------------------------------------
     def __fix_extent(self) -> None:
@@ -196,9 +232,10 @@ class RenderImage(BaseClass):
         self.__fix_extent()
         Nx, Ny = self._image_resolution()
 
-        self._data = np.zeros((Ny, Nx, 4), dtype=np.float64)
+        self._data = None
+        self._device = None if device is None else torch.device(device)
         if p is not None and len(p):
-            device = resolve_device(device)
+            device = self.device
 
             def f32(a):     # host data or a tensor, as f32 on the binning's device
                 if not isinstance(a, torch.Tensor):
@@ -207,20 +244,29 @@ class RenderImage(BaseClass):
             px, py, w_d, wl_d = f32(p[:, 0]), f32(p[:, 1]), f32(w), f32(wl)
             ext = tuple(float(v) for v in self.extent)
             bin_fn = bin_xyzw_cuda if global_options.cuda_binning else binning.bin_xyzw
-            self._accumulate(bin_fn(px, py, w_d, wl_d, Nx, Ny, ext))
+            self._data = _sum_into_zeros((Ny, Nx, 4), bin_fn(px, py, w_d, wl_d, Nx, Ny, ext))
+        else:
+            self._data = np.zeros((Ny, Nx, 4), dtype=np.float64)
 
         if not _dont_filter and self._limit is not None:
             self._apply_rayleigh_filter()
 
     def _accumulate(self, img_dev) -> None:
-        """Add a device-rendered (Ny, Nx, 4) tile (batched render path)."""
+        """Add a device-rendered (Ny, Nx, 4) tile (batched render path). A
+        tensor is widened to f64 on its device, which the image takes as
+        its own, and copied to the host once."""
         if self._data is None:
             self._limit = None
             self.__fix_extent()
             Nx, Ny = self._image_resolution()
+            if isinstance(img_dev, torch.Tensor):
+                self._device = img_dev.device
+                self._data = _sum_into_zeros((Ny, Nx, 4), img_dev)
+                return
             self._data = np.zeros((Ny, Nx, 4), dtype=np.float64)
         if isinstance(img_dev, torch.Tensor):
-            img_dev = img_dev.detach().cpu().numpy()
+            self._device = img_dev.device
+            img_dev = _host_array(img_dev.detach().to(torch.float64))
         self._data += np.asarray(img_dev, dtype=np.float64)
 
     def _apply_rayleigh_filter(self) -> None:
@@ -256,11 +302,16 @@ class RenderImage(BaseClass):
         np.savez_compressed(path_, **sdict)
 
     @staticmethod
-    def load(path: str) -> "RenderImage":
-        """Load a saved RenderImage archive."""
+    def load(path: str, device=None) -> "RenderImage":
+        """Load a saved RenderImage archive.
+
+        :param device: where :meth:`get` computes; ``None`` is the CUDA
+            device, pass ``"cpu"`` for the CPU
+        """
         io = np.load(path)
         im = RenderImage(io["extent"], long_desc=io["long_desc"][()], desc=io["desc"][()],
                          projection=io["proj"][()])
+        im._device = None if device is None else torch.device(device)
         im._limit = io["limit"][()] if not np.isnan(io["limit"]) else None
         im.projection = None if im.projection == "None" else im.projection
         im._data = io["_data"]

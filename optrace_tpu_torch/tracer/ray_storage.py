@@ -44,15 +44,17 @@ def _read_only(a):
     return a
 
 
-def _source_directions(p01):
+def _source_directions(p01: torch.Tensor) -> torch.Tensor:
     """The unit directions of the first section from the f32 positions of
-    the first two, (n, 2, 3), in f32 arithmetic, as f64 (zero where the
-    ray does not move)."""
+    the first two, (n, 2, 3), as f64 (zero where the ray does not move), on
+    their device: the f32 operations of numpy's ``np.linalg.norm`` and
+    division, in its order (the squares summed left to right, the square
+    root rounded once to f32), so that the bits are those of the host's
+    f32 arithmetic."""
     s0 = p01[:, 1] - p01[:, 0]
-    norm = np.linalg.norm(s0, axis=-1, keepdims=True)
-    with np.errstate(invalid="ignore", divide="ignore"):
-        s0 = np.where(norm > 0, s0 / norm, s0)
-    return np.asarray(s0, dtype=np.float64)
+    sq = s0 * s0
+    norm = torch.sqrt((sq[:, 0:1] + sq[:, 1:2] + sq[:, 2:3]).double()).float()
+    return torch.where(norm > 0, s0 / norm, s0).double()
 
 
 class RayStorage(BaseClass):
@@ -139,14 +141,15 @@ class RayStorage(BaseClass):
         basic = isinstance(rows, slice)
         if not basic:
             rows = torch.as_tensor(np.flatnonzero(rows), device=t.device)
+        # widened on the device, so that each array crosses to the host once
         if name == "s0_list":
-            a = _source_directions(t[rows, :2].cpu().numpy())
+            a = _source_directions(t[rows, :2]).cpu().numpy()
             a = a if sec is None else a[:, sec]
         else:
             if sec is not None and not isinstance(sec, (int, np.integer, slice)):
                 sec = torch.as_tensor(np.asarray(sec), device=t.device)
             v = t[rows] if sec is None else t[rows, sec]
-            a = v.cpu().numpy().astype(dtype, copy=False)
+            a = v.to(getattr(torch, np.dtype(dtype).name)).cpu().numpy()
         return _read_only(a) if basic else a
 
     def _shape(self, name):

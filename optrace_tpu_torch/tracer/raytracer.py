@@ -52,6 +52,10 @@ from ..utils.warnings import warning
 # their prepared runs and the function that draws the rays
 _TraceEntry = namedtuple("_TraceEntry", "elements sources steps plans source_fn")
 TRACE_CACHE_SIZE = 32       # entries of the trace cache, as in the JAX package
+# what the geometry checks of one scene found: the warnings they raised, in
+# order, whether the scene has an error and where a collision lies (None:
+# fault_pos stays as it was), with the objects the checks were made on
+_GeometryOutcome = namedtuple("_GeometryOutcome", "elements sources messages error fault_pos")
 
 
 class Raytracer(Group):
@@ -87,6 +91,7 @@ class Raytracer(Group):
         self.geometry_error = False
         self._last_trace_snapshot = None
         self._trace_cache = OrderedDict()      # (scene snapshot, device, N) -> _TraceEntry, LRU
+        self._geometry_cache = OrderedDict()   # scene snapshot -> _GeometryOutcome, LRU
         self.fault_pos = np.array([])
         self._seed_counter = 0
 
@@ -119,6 +124,7 @@ class Raytracer(Group):
         super().clear()
         self.rays.__init__()
         self._trace_cache.clear()
+        self._geometry_cache.clear()
 
     # ------------------------------------------------------------------
     # snapshots / change detection
@@ -147,6 +153,29 @@ class Raytracer(Group):
     def check_if_rays_are_current(self) -> bool:
         return self._last_trace_snapshot is not None and not self.compare_property_snapshot(
             self._last_trace_snapshot, self.tracing_snapshot())["Any"]
+
+    @staticmethod
+    def _scene_key(snap: dict) -> tuple:
+        """The scene part of a tracing snapshot: lenses, filters, apertures,
+        ray sources, ambient medium and outline, and the trace settings."""
+        return tuple(tuple(snap[k]) for k in ("Lenses", "Filters", "Apertures", "RaySources",
+                                               "Ambient", "TraceSettings"))
+
+    def _cached(self, cache: OrderedDict, key, elements: list, sources: list, build):
+        """The entry of ``key`` in an LRU cache of :data:`TRACE_CACHE_SIZE`
+        entries that evicts one oldest entry at a time; ``build()`` makes
+        it where there is none, or where the entry was made from other
+        element or source objects than those now in the scene."""
+        entry = cache.get(key)
+        if entry is not None and len(entry.elements) == len(elements) \
+                and all(a is b for a, b in zip(entry.elements + entry.sources, elements + sources)):
+            cache.move_to_end(key)
+            return entry
+        cache.pop(key, None)
+        while len(cache) >= TRACE_CACHE_SIZE:
+            cache.popitem(last=False)
+        entry = cache[key] = build()
+        return entry
 
     # ------------------------------------------------------------------
     # geometry checks
@@ -207,26 +236,24 @@ class Raytracer(Group):
         where = np.where(coll)[0]
         return bool(np.any(coll)), x2v[where], y2v[where], zfv[where]
 
-    def _geometry_checks(self) -> None:
-        elements = self._tracing_elements()
-
+    def _geometry_outcome(self, elements: list) -> tuple:
+        """The geometry checks of the scene as it is now, with its tracing
+        elements ``elements`` (the end absorber last): (warnings in order,
+        error, collision positions or None)."""
         def is_inside(e) -> bool:
             o = self.outline + self.N_EPS * np.array([-1, 1, -1, 1, -1, 1])
             return o[0] <= e[0] and e[1] <= o[1] and o[2] <= e[2] and e[3] <= o[3] \
                 and o[4] <= e[4] and e[5] <= o[5]
 
         if not self.ray_sources:
-            warning("RaySource Missing.")
-            self.geometry_error = True
-            return
+            return ["RaySource Missing."], True, None
 
         coll = False
         xc = yc = zc = np.array([])
         for i, el in enumerate(elements):
             if not is_inside(el.extent):
-                warning(f"Element{i} {el} with extent {el.extent} outside outline {self.outline}.")
-                self.geometry_error = True
-                return
+                return [f"Element{i} {el} with extent {el.extent} outside outline {self.outline}."], \
+                    True, None
 
             if i + 1 < len(elements):
                 coll, xc, yc, zc = self.check_collision(el.front, elements[i + 1].front)
@@ -237,37 +264,52 @@ class Raytracer(Group):
 
             if self.use_hurb and i < len(elements) - 1 and isinstance(el, Aperture):
                 if not isinstance(el.front, (RingSurface, SlitSurface)):
-                    warning(f"Ray bending for surface type {type(el.front).__name__} not implemented.")
-                    self.geometry_error = True
-                    return
+                    return [f"Ray bending for surface type {type(el.front).__name__} not implemented."], \
+                        True, None
             if coll:
                 break
 
         if not coll:
             for rs in self.ray_sources:
                 if not is_inside(rs.extent):
-                    warning(f"RaySource {rs} with extent {rs.extent} outside outline {self.outline}.")
-                    self.geometry_error = True
-                    return
+                    return [f"RaySource {rs} with extent {rs.extent} outside outline {self.outline}."], \
+                        True, None
                 if isinstance(rs.surface, (Surface, Point, Line)) and rs.pos[2] >= elements[0].extent[4]:
                     coll, xc, yc, zc = self.check_collision(rs.surface, elements[0].front)
                 if coll:
                     break
 
         if coll:
-            warning(f"Detected collision between two Surfaces at {xc[0], yc[0], zc[0]}"
-                    f" and at least {xc.shape[0]} other positions.")
-            self.geometry_error = True
-            self.fault_pos = np.column_stack((xc, yc, zc))
-            return
+            return [f"Detected collision between two Surfaces at {xc[0], yc[0], zc[0]}"
+                    f" and at least {xc.shape[0]} other positions."], True, np.column_stack((xc, yc, zc))
+        return [], False, None
 
-        self.geometry_error = False
+    def _geometry_checks(self, snap: dict = None) -> None:
+        """Check the geometry before a trace: raise the warnings of what is
+        wrong and set ``geometry_error`` and, for a collision, ``fault_pos``.
+        The outcome is kept for each scene (``snap``, the tracing snapshot
+        of the scene as it is now, taken here when not given) and replayed
+        while the scene is the same: the same warnings in the same order and
+        the same state as a fresh check. An outcome also holds the element
+        and source objects it was found on, and is found anew when another
+        object stands in their place; the cache is emptied by ``clear()``."""
+        elements = self._tracing_elements()
+        sources = list(self.ray_sources)
+        snap = self.tracing_snapshot() if snap is None else snap
+        out = self._cached(self._geometry_cache, self._scene_key(snap), elements[:-1], sources,
+                           lambda: _GeometryOutcome(elements[:-1], sources,
+                                                    *self._geometry_outcome(elements)))
+        for message in out.messages:
+            warning(message)
+        self.geometry_error = out.error
+        if out.fault_pos is not None:
+            self.fault_pos = out.fault_pos.copy()
 
-    def _pretrace_check(self, N: int) -> bool:
+    def _pretrace_check(self, N: int, snap: dict = None) -> bool:
         pc.check_type("N", N, int)
         if N < 1:
             raise ValueError(f"Ray number N needs to be at least 1, but is {N}.")
-        self._geometry_checks()
+        self._geometry_checks(snap)
         if self.geometry_error and not self._ignore_geometry_error:
             warning("ABORTED TRACING")
             return True
@@ -314,36 +356,27 @@ class Raytracer(Group):
                                        pos_host=ph(el.front)))
         return steps
 
-    def _trace_entry(self, N: int) -> _TraceEntry:
+    def _trace_entry(self, N: int, snap: dict = None) -> _TraceEntry:
         """Steps, prepared runs and ray source function of a trace of N rays
         through the scene as it is now: the counterpart of the JAX
         package's ``_get_trace_fn``. An entry is kept for each key, the
-        snapshot of the lenses, filters, apertures, ray sources, ambient
-        medium and outline, the trace settings, the rays a source draws
+        scene part of the tracing snapshot (``snap``, taken here when not
+        given; :meth:`_scene_key`), the rays a source draws
         (``rays.N_list``, set by ``rays.init``), the device and N, in a
-        least-recently-used cache of :data:`TRACE_CACHE_SIZE` entries that
-        evicts one oldest entry at a time (``clear()`` empties it). An
-        entry also holds the element and source objects it was built from,
-        and is built anew when another object stands in their place. The
-        entries hold tables (kB to MB), never rays."""
+        least-recently-used cache of :data:`TRACE_CACHE_SIZE` entries
+        (:meth:`_cached`; ``clear()`` empties it). An entry also holds the
+        element and source objects it was built from, and is built anew
+        when another object stands in their place. The entries hold tables
+        (kB to MB), never rays."""
         elements = self._tracing_elements()[:-1]    # the end absorber follows from the outline
         sources = list(self.ray_sources)
-        snap = self.tracing_snapshot()
-        key = (tuple(snap["Lenses"]), tuple(snap["Filters"]), tuple(snap["Apertures"]),
-               tuple(snap["RaySources"]), tuple(snap["Ambient"]), tuple(snap["TraceSettings"]),
-               tuple(int(n) for n in self.rays.N_list), str(self.device), int(N))
-        entry = self._trace_cache.get(key)
-        if entry is not None and len(entry.elements) == len(elements) \
-                and all(a is b for a, b in zip(entry.elements + entry.sources, elements + sources)):
-            self._trace_cache.move_to_end(key)
-            return entry
-        self._trace_cache.pop(key, None)
-        while len(self._trace_cache) >= TRACE_CACHE_SIZE:
-            self._trace_cache.popitem(last=False)
-        steps = self._build_steps()
-        entry = self._trace_cache[key] = _TraceEntry(elements, sources, steps, RunPlans(steps),
-                                                     self._make_source_fn(N))
-        return entry
+        snap = self.tracing_snapshot() if snap is None else snap
+        key = self._scene_key(snap) + (tuple(int(n) for n in self.rays.N_list), str(self.device), int(N))
+
+        def build():
+            steps = self._build_steps()
+            return _TraceEntry(elements, sources, steps, RunPlans(steps), self._make_source_fn(N))
+        return self._cached(self._trace_cache, key, elements, sources, build)
 
     def _make_source_fn(self, N: int, device=None):
         """Ray generation for all sources with static per-source counts:
@@ -367,7 +400,8 @@ class Raytracer(Group):
     def trace(self, N: int) -> None:
         """Trace N rays through the geometry and store their sections."""
         N = int(N)
-        if self._pretrace_check(N):
+        snap = self.tracing_snapshot()      # the scene as it is traced: read once
+        if self._pretrace_check(N, snap):
             return
 
         nt = len(self.tracing_surfaces) + 2
@@ -378,7 +412,7 @@ class Raytracer(Group):
 
         bar = ProgressBar("Raytracing: ", 3)
         self.rays.init(self.ray_sources, N, nt, self.no_pol, seed=self._seed_counter)
-        entry = self._trace_entry(N)
+        entry = self._trace_entry(N, snap)
         bar.update()
 
         self._seed_counter += 1
@@ -399,7 +433,8 @@ class Raytracer(Group):
         self._show_messages(N)
         bar.finish()
 
-        self._last_trace_snapshot = self.tracing_snapshot()
+        # the scene did not change while it was traced, the rays did
+        self._last_trace_snapshot = dict(snap, Rays=self.rays.crepr())
 
     # ------------------------------------------------------------------
     # messages
@@ -774,7 +809,7 @@ class Raytracer(Group):
         img = RenderImage(long_desc=desc, extent=np.asarray(ext, dtype=np.float64),
                           projection=projection_method
                           if isinstance(dsurf, SphericalSurface) else None)
-        img.render(limit=limit, _dont_filter=True)   # fix extent, alloc zeros
+        img.render(limit=limit, _dont_filter=True, device=self.device)   # fix extent, alloc zeros
         Ny, Nx, _ = img._data.shape
 
         if mesh is not None:

@@ -39,12 +39,21 @@ device launches and kernel 1 and 2 launches a batch, and the parts of the
 first (stored) batch timed on their own: ``trace``, ``detector_image`` from
 the sections kept on the card, and one fused batch with two sinks.
 
-``--trace`` times ``Raytracer.trace`` of the double Gauss without and with
-polarization at ``--rays`` rays, ``--batches`` times each after a warm-up:
-the host clock of the call (which waits for its INFOS counters, so for the
-trace) and of the first read of all six arrays of ``RT.rays`` after it. With
-``--root`` it times an earlier tree the same way (where ``trace`` copied the
-sections to the host itself, that read finds them made).
+``--trace`` splits the stored trace's read path of the double Gauss at
+``--rays`` rays without and with polarization, and of the 57-surface stack
+(``trace`` only), stage by stage (``StageTimer``: the host seconds in named
+functions, each less the wrapped calls it makes; the median of
+``--batches`` runs): ``trace`` on a cache hit as it runs (geometry checks,
+the tracing snapshots, the trace entry, the sampling and eager launches,
+the fill, the wait for the INFOS counters); ``detector_image`` with the
+card synchronized at every stage (the change check, the f64 sections, the
+hit search, kernel 2, the f64 image and its copy to the host); ``get`` in
+three modes at 945² and 315² the same way (block mean, colour, copies, the
+image object); the first full read of ``RT.rays`` taken apart
+(``first_read_split``: copies, page faults, pinned memory, the f64
+conversions, ``s0``); and the plain host clock of each call beside. With
+``--root`` it splits an earlier tree the same way; a function that the
+tree does not have is listed under ``missing``.
 
 ``--design`` profiles the design render of chip_smoke.py's design phase
 (``tracer/diff.py:make_parameterized_render`` of the double Gauss, 189²
@@ -279,30 +288,243 @@ def iterative_profile(args, smi):
     return 0
 
 
+class StageTimer:
+    """Host seconds spent in named callables while the ``with`` block runs.
+
+    ``targets`` are (owner, attribute, label): a module or class and the
+    name of a function, static method, class or ``torch.Tensor`` method on
+    it; labels may repeat, their times add. A call's time is its own, less
+    that of the wrapped calls it makes, so the labels part the wall time and
+    the rest is the code that no target covers. With ``sync`` every wrapped
+    call synchronizes the card as it starts and as it ends, so a stage holds
+    its own device work (and not the work queued before it). A target that
+    a tree does not have is left out and named in ``missing``."""
+
+    def __init__(self, targets, sync=False):
+        import collections
+        self.targets, self.sync = targets, sync
+        self.seconds = collections.defaultdict(float)
+        self.calls = collections.Counter()
+        self.missing = []
+        self._stack, self._saved = [], []
+
+    def _wrap(self, fn, label):
+        import functools
+        import torch
+
+        @functools.wraps(fn)
+        def timed(*a, **kw):
+            if self.sync:
+                torch.cuda.synchronize()
+            self._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if self.sync:
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                inner = self._stack.pop()
+                self.seconds[label] += dt - inner
+                self.calls[label] += 1
+                if self._stack:
+                    self._stack[-1] += dt
+        return timed
+
+    def __enter__(self):
+        for owner, name, label in self.targets:
+            if not hasattr(owner, name):
+                self.missing.append(f"{getattr(owner, '__name__', owner)}.{name}")
+                continue
+            raw = owner.__dict__.get(name) if isinstance(owner, type) else getattr(owner, name)
+            self._saved.append((owner, name, raw))
+            if isinstance(raw, staticmethod):
+                setattr(owner, name, staticmethod(self._wrap(raw.__func__, label)))
+            else:
+                setattr(owner, name, self._wrap(getattr(owner, name), label))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, raw in reversed(self._saved):
+            if raw is None:
+                delattr(owner, name)        # a method inherited from a base class
+            else:
+                setattr(owner, name, raw)
+        self._saved = []
+
+    def split(self, wall_s):
+        return dict(seconds=dict(self.seconds), calls=dict(self.calls),
+                    not_covered=wall_s - sum(self.seconds.values()), missing=self.missing)
+
+
+def _median_split(splits):
+    """The split whose wall time is the median of the runs."""
+    return sorted(splits, key=lambda s: s["wall_s"])[len(splits) // 2]
+
+
+def first_read_split(rays, reps=2):
+    """The first full read of ``RT.rays`` taken apart, on the tensors that
+    the storage keeps: the copy of each to fresh host memory (``.cpu()``),
+    into host memory touched before (the page faults are the difference),
+    into pinned memory; the f32 → f64 conversion of the positions and
+    indices into fresh and into touched memory; ``s0`` as the tree makes
+    it from the first two sections; and the f64 conversion on the card before one copy into
+    fresh and into pinned memory; the allocation of pinned memory. Seconds,
+    the least of ``reps`` runs."""
+    import numpy as np
+    import torch
+
+    def best(fn):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return min(out)
+
+    dev = {k: t for k, t in rays._dev.items() if t is not None}
+    # pinned host memory: its first allocation of a size (the caching host
+    # allocator rounds it up to a power of two), then the same again, from
+    # the allocator's cache, for the f64 positions and for a 945² XYZW image
+    pinned_alloc = {}
+    for label, nbytes in (("p_f64", dev["p"].numel() * 8), ("image_945", 945 * 945 * 4 * 8)):
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            times.append(time.perf_counter() - t0)
+            del buf
+        pinned_alloc[label] = dict(bytes=nbytes, first_s=times[0], cached_s=times[1])
+    touched = {k: torch.zeros(t.shape, dtype=t.dtype) for k, t in dev.items()}
+    pinned = {k: torch.zeros(t.shape, dtype=t.dtype, pin_memory=True) for k, t in dev.items()}
+    host = {k: t.cpu().numpy() for k, t in dev.items()}
+    wide = {k: np.zeros(host[k].shape) for k in ("p", "n")}
+    pinned64 = {k: torch.zeros(dev[k].shape, dtype=torch.float64, pin_memory=True) for k in ("p", "n")}
+    res = dict(
+        bytes_on_card={k: t.numel() * t.element_size() for k, t in dev.items()},
+        copy_fresh_s={k: best(lambda t=t: t.cpu()) for k, t in dev.items()},
+        copy_touched_s={k: best(lambda k=k: touched[k].copy_(dev[k])) for k in dev},
+        copy_pinned_s={k: best(lambda k=k: pinned[k].copy_(dev[k])) for k in dev},
+        to_f64_fresh_s={k: best(lambda k=k: host[k].astype(np.float64)) for k in ("p", "n")},
+        to_f64_touched_s={k: best(lambda k=k: np.copyto(wide[k], host[k])) for k in ("p", "n")},
+        s0_as_the_tree_reads_it_s=best(lambda: rays._from_device("s0_list", slice(None))),
+        f64_on_card_then_copy_fresh_s={k: best(lambda k=k: dev[k].to(torch.float64).cpu()) for k in ("p", "n")},
+        f64_on_card_then_copy_pinned_s={k: best(lambda k=k: pinned64[k].copy_(dev[k].to(torch.float64)))
+                                        for k in ("p", "n")})
+    res["page_faults_s"] = {k: res["copy_fresh_s"][k] - res["copy_touched_s"][k] for k in dev}
+    res["pinned_alloc"] = pinned_alloc
+    thp = pathlib.Path("/sys/kernel/mm/transparent_hugepage/enabled")
+    res["transparent_hugepages"] = thp.read_text().strip() if thp.exists() else "not readable"
+    return res
+
+
+def split_targets():
+    """The stages of the stored trace's read path, as ``StageTimer``
+    targets: ``trace`` (run as it is), ``detector_image`` and ``get`` (run
+    with the card synchronized at every stage)."""
+    import torch
+    from optrace_tpu_torch import color as color_mod
+    from optrace_tpu_torch.tracer import raytracer as rt_mod, ray_storage
+    from optrace_tpu_torch.image import render_image as ri_mod
+
+    Raytracer, RayStorage, RenderImage = rt_mod.Raytracer, ray_storage.RayStorage, ri_mod.RenderImage
+    trace = [(Raytracer, "_geometry_checks", "geometry_checks"),
+             (Raytracer, "tracing_snapshot", "tracing_snapshot"),
+             (Raytracer, "_trace_entry", "trace_entry"),
+             (rt_mod, "trace_bundle", "launches_trace"),
+             (RayStorage, "fill", "fill"),
+             (torch.Tensor, "cpu", "wait_for_infos"),
+             (Raytracer, "_show_messages", "messages")]
+    image = [(Raytracer, "check_if_rays_are_current", "check_if_rays_are_current"),
+             (RayStorage, "sections", "f64_sections"),
+             (rt_mod, "detector_hits", "hit_search"),
+             (ri_mod, "bin_xyzw_cuda", "kernel_2"),
+             (RenderImage, "_accumulate", "accumulate_f64"),
+             (ri_mod, "_sum_into_zeros", "accumulate_f64"),
+             (torch.Tensor, "cpu", "accumulate_copy"),
+             (torch, "empty", "accumulate_copy"), (torch.Tensor, "copy_", "accumulate_copy")]
+    colour = ("xyz_to_srgb", "outside_srgb_gamut", "xyz_to_luv", "luv_hue", "luv_chroma", "luv_saturation")
+    get = ([(RenderImage, "_block_mean", "block_mean")]
+           + [(color_mod, f, "colour") for f in colour]
+           + [(ri_mod, "RGBImage", "image_object"), (ri_mod, "ScalarImage", "image_object")]
+           + [(torch, "from_numpy", "copies"), (torch, "as_tensor", "copies"),
+              (torch.Tensor, "cpu", "copies"), (torch.Tensor, "numpy", "copies"),
+              (torch.Tensor, "to", "copies"), (torch, "empty", "copies"),
+              (torch.Tensor, "copy_", "copies")])
+    return dict(trace=trace, detector_image=image, get=get)
+
+
+def split_call(fn, targets=(), sync=False):
+    """(split, result) of one call of ``fn``: its wall seconds, the card
+    synchronized before and after, and the seconds of each stage."""
+    import torch
+    torch.cuda.synchronize()
+    with StageTimer(targets, sync=sync) as st:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return dict(wall_s=wall, **st.split(wall)), out
+
+
 def trace_times(args, smi):
-    """``Raytracer.trace`` and the first full read of ``RT.rays`` by the host's clock."""
+    """The stored trace's path split stage by stage, by the host's clock:
+    ``trace`` on a cache hit, ``detector_image``, ``get`` and the first full
+    read of ``RT.rays``."""
     import torch
     import optrace_tpu_torch as ot
-    from chip_smoke import double_gauss_scene
+    import chip_smoke as cs
 
-    res = dict(gpu=smi, scene="double_gauss", entry="Raytracer.trace", rays=args.rays,
+    targets = split_targets()
+    trace_targets, image_targets, get_targets = targets["trace"], targets["detector_image"], targets["get"]
+
+    res = dict(gpu=smi, scene="double_gauss and stack57", rays=args.rays, runs=args.batches,
                package=str(pathlib.Path(ot.__file__).resolve().parent))
-    for no_pol in (True, False):
-        RT = double_gauss_scene(ot, no_pol=no_pol)
+    for label, scene, no_pol in (("no_pol", cs.double_gauss_scene, True), ("pol", cs.double_gauss_scene, False),
+                                 ("stack57", cs.synthetic_stack_scene, True)):
+        RT = scene(ot, no_pol=no_pol)
         RT.trace(20000)
-        RT.trace(args.rays)                 # builds the kernels, warms up
-        trace_s, read_s = [], []
-        for _ in range(args.batches):
+        RT.trace(args.rays)                 # builds the kernels, warms up; a miss
+        row = dict(trace_s=[], first_full_read_s=[])
+        for _ in range(args.batches):       # the plain clock, no target wrapped
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             RT.trace(args.rays)
             t1 = time.perf_counter()
             for name in ("p_list", "s0_list", "n_list", "pol_list", "w_list", "wl_list"):
                 getattr(RT.rays, name)
-            trace_s.append(t1 - t0)
-            read_s.append(time.perf_counter() - t1)
-        res["no_pol" if no_pol else "pol"] = dict(trace_s=trace_s, first_full_read_s=read_s)
+            row["trace_s"].append(t1 - t0)
+            row["first_full_read_s"].append(time.perf_counter() - t1)
+        # trace on a hit, as it runs (host stages; the INFOS copy waits for the card)
+        row["trace_hit_split"] = _median_split([split_call(lambda: RT.trace(args.rays), trace_targets)[0]
+                                                for _ in range(args.batches)])
+        RT.trace(args.rays)
+        row["first_read_split"] = first_read_split(RT.rays)
+        if RT.detectors:
+            RT.trace(args.rays)
+            RT.detector_image()
+            splits, img = [], None
+            for _ in range(args.batches):
+                s, img = split_call(RT.detector_image, image_targets, sync=True)
+                splits.append(s)
+            row["detector_image_split_synced"] = _median_split(splits)
+            row["detector_image_s"] = [split_call(RT.detector_image)[0]["wall_s"] for _ in range(args.batches)]
+            gets = {}
+            for mode in ("sRGB (Absolute RI)", "sRGB (Perceptual RI)", "Lightness (CIELUV)"):
+                for side in (945, 315):
+                    img.get(mode, side)
+                    key = f"{mode}@{side}"
+                    gets[key] = dict(
+                        wall_s=[split_call(lambda: img.get(mode, side))[0]["wall_s"] for _ in range(args.batches)],
+                        split_synced=_median_split([split_call(lambda: img.get(mode, side), get_targets, sync=True)[0]
+                                                    for _ in range(args.batches)]))
+            row["get"] = gets
+            row["image_device"] = str(getattr(img, "_device", "host (no device attribute)"))
+        res[label] = row
         del RT
+        torch.cuda.empty_cache()
     print(json.dumps(res))
     return 0
 
