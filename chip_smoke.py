@@ -1193,6 +1193,15 @@ def card_vs_cpu(ot, RT, n, seed, subset=GENERIC_SUBSET):
                 infos=cpu["infos"].sum(dim=1).tolist(), infos_abs_diff=d_infos)
 
 
+def _eager_entry(RT, n):
+    """The trace entry of a scene with a function or data surface, which
+    stays eager: its ``graphed`` attribute and the reason, for the phase's
+    line."""
+    entry = RT._trace_entry(n)
+    assert not entry.graphed and "function or data surface" in entry.eager_reason, entry.eager_reason
+    return dict(graphed=entry.graphed, reason=entry.eager_reason)
+
+
 def generic_phase(ot, smi, n=N_RAYS):
     """Function and data surfaces on the card at 10⁶ rays. (i) The double
     Gauss with a data-surface front: Raytracer.trace (kernel 1 on the runs of
@@ -1224,6 +1233,7 @@ def generic_phase(ot, smi, n=N_RAYS):
         conic_run.variant_launches
     launches["conic_run[nopol,store]@generic"] = conic_run.launches
     ill = RT._msgs[ILL_COND].tolist()
+    graphed_dg = _eager_entry(RT, n)
     reset_launch_counts()
     with BinRecorder(render_image_mod) as rec:
         t0 = time.perf_counter()
@@ -1284,7 +1294,7 @@ def generic_phase(ot, smi, n=N_RAYS):
     torch.cuda.empty_cache()
     cmp_dg = card_vs_cpu(ot, RT, n, seed=24)
     out["data_double_gauss"] = dict(
-        runs=runs, trace_seconds=t_trace, detector_image_seconds=t_image,
+        runs=runs, trace_seconds=t_trace, trace_entry=graphed_dg, detector_image_seconds=t_image,
         render_ms_per_batch=t_render * 1e3, render_power=power_render, image_power=img.power(),
         ill_conditioned_by_section=ill,
         generic_step=dict(device_launches=step_launches, ms=step_ms, device_busy_ms=step_busy),
@@ -1304,6 +1314,7 @@ def generic_phase(ot, smi, n=N_RAYS):
     assert conic_run.launches == 0
     ill = RT._msgs[ILL_COND].tolist()
     assert ill[1] > 0 and ill[2] > 0, ill
+    graphed_cos = _eager_entry(RT, n)
     reset_launch_counts()
     with BinRecorder(render_image_mod) as rec:
         t0 = time.perf_counter()
@@ -1325,7 +1336,7 @@ def generic_phase(ot, smi, n=N_RAYS):
             return trace_bundle(steps[:1], RT.n0, outline, *bundle, True, store_sections=False)
     cos_ms, (cos_launches, cos_busy, _) = cuda_ms(cos_step, reps=3), device_busy(cos_step)
     del bundle
-    out["cosine_lens"] = dict(trace_seconds=t_trace, detector_image_seconds=t_image,
+    out["cosine_lens"] = dict(trace_seconds=t_trace, trace_entry=graphed_cos, detector_image_seconds=t_image,
                               image_power=img.power(), ill_conditioned_by_section=ill,
                               generic_step=dict(device_launches=cos_launches, ms=cos_ms,
                                                 device_busy_ms=cos_busy),
@@ -2020,21 +2031,59 @@ def eager_host_arrays(rays):
                 w_list=d["w"].cpu().numpy(), wl_list=d["wl"].cpu().numpy())
 
 
+TRACE_REPLAYS = 6                       # timed replays of a graphed trace
+
+
+def _held_graphs(RT):
+    """The trace entries of ``RT`` that hold a CUDA graph now, oldest first."""
+    return [e for e in RT._trace_cache.values() if e.graphed and e.run.graph is not None]
+
+
+def _timed_trace(RT, n):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    RT.trace(n)
+    return time.perf_counter() - t0
+
+
+def _same_trace(ot, scene, RT, n, seed, **kw):
+    """Assert that the stored trace of ``RT`` equals bit for bit, in its
+    sections and INFOS, the eager trace of a fresh raytracer of ``scene``
+    at the seed counter ``seed``."""
+    import numpy as np
+    fresh = scene(ot, **kw)
+    fresh._seed_counter = seed
+    fresh.trace(n)
+    assert fresh._trace_entry(n).run.graph is None
+    for k, t in RT.rays._dev.items():
+        assert (t is None) == (fresh.rays._dev[k] is None), k
+        assert t is None or _same_bits(t, fresh.rays._dev[k]), k
+    assert np.array_equal(RT._msgs, fresh._msgs)
+
+
 def trace_phase(ot, smi, dg_runs, n=N_RAYS):
     """``Raytracer.trace`` at 10⁶ rays of the double Gauss (polarization
     and none) and of the 57-surface stack (bench.py's stored-trace scene
     when its fixtures are absent, ``build_synthetic``): the seconds of
-    ``trace`` with no host read (a cache miss, then a hit), then of the
-    first full read of ``RT.rays``; device ms of source + trace, device-busy
-    ms and idle share of the eager trace, its peak device memory. On the
-    double Gauss: no host array made through trace → detector_image →
-    detector_spectrum → source_image → focus_search; scene A, scene B,
-    scene A (a hit) beside the miss, the hit's sections against a fresh
-    raytracer's at the same seed counter; the arrays made at the first read
-    against an eager ``.cpu()`` conversion of the same tensors."""
+    ``trace`` with no host read (a cache miss, the eager hits before the
+    key's capture, the capture with its first replay, the replays), then of
+    the first full read of ``RT.rays``; device ms of source + trace,
+    device-busy ms and idle share of a replayed trace, the graph's pool and
+    the peak device memory of the eager, capturing and replayed traces; the
+    replayed trace against a fresh raytracer's eager trace at the same seed
+    counter, bit for bit, and kernel 1 counted in the replay as in the
+    eager trace. On the double Gauss: no host array made through trace →
+    detector_image → detector_spectrum → source_image → focus_search; scene
+    A, scene B, scene A (a replayed hit) beside the miss; the arrays made at
+    the first read against an eager ``.cpu()`` conversion of the same
+    tensors; more graphed keys than ``MAX_GRAPHED_TRACES``, and the memory
+    after the oldest graph was dropped. The ``steps`` scene with HURB
+    replayed against its eager trace."""
     import numpy as np
     import torch
     from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.tracer.raytracer import MAX_GRAPHED_TRACES, TRACE_CAPTURE_CALL
     from optrace_tpu_torch.tracer.trace_core import trace_bundle
     launches, out = {}, []
     scenes = {"double_gauss": double_gauss_scene, "stack57": synthetic_stack_scene}
@@ -2061,10 +2110,32 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
         rays = RTt.rays
         assert rays._host == {} and rays.N == n and rays.Nt == n_surf + 2
         kept_bytes = sum(t.numel() * t.element_size() for t in rays._dev.values() if t is not None)
+        entry = RTt._trace_entry(n)
+        step = entry.run
+        assert entry.graphed and entry.eager_reason is None and step.graph is None, entry.eager_reason
+        # the eager hits before the key's capture, the capture with its
+        # first replay, then the replays
+        t_eager = [_timed_trace(RTt, n) for _ in range(TRACE_CAPTURE_CALL - 2)]
+        assert step.graph is None and step.captures_next
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        RTt.trace(n)                            # a hit
-        t_hit = time.perf_counter() - t0
+        reserved0 = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        t_capture = _timed_trace(RTt, n)
+        capture_peak = torch.cuda.max_memory_allocated() - base
+        assert step.graph is not None
+        captured = step.captured_launches
+        assert captured[(conic_run, "launches")] == len(stored_runs), captured
+        assert captured[(conic_run, "variant_launches")] == {(not no_pol, True): len(stored_runs)}, captured
+        torch.cuda.reset_peak_memory_stats()
+        t_replay = [_timed_trace(RTt, n) for _ in range(TRACE_REPLAYS)]
+        replay_peak = torch.cuda.max_memory_allocated() - base
+        reset_launch_counts()
+        seed = RTt._seed_counter
+        RTt.trace(n)                            # a replay, counted
+        assert conic_run.variant_launches == {(not no_pol, True): len(stored_runs)}, conic_run.variant_launches
+        launches[("conic_run[nopol,store]" if no_pol else "conic_run[pol,store]")
+                 + ("@trace_replay" if name == "double_gauss" else "@stack56_replay")] = conic_run.launches
+        _same_trace(ot, scene, RTt, n, seed, no_pol=no_pol)
         n_kernels, busy_ms, busy_wall_ms = device_busy(lambda: RTt.trace(n))
         steps = RTt._build_steps()
         src = RTt._make_source_fn(n)
@@ -2076,11 +2147,18 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
         dev_ms = cuda_ms(dev_trace, reps=3, warmup=1)
         del steps, src
         row = dict(scene=name, no_pol=no_pol, N=n, surfaces=n_surf, sections=[n, n_surf + 2, 3],
-                   trace_seconds_miss=t_miss, trace_seconds_hit=t_hit, device_ms=dev_ms,
+                   trace_seconds_miss=t_miss, trace_seconds_eager_hits=t_eager,
+                   trace_seconds_capture=t_capture, trace_seconds_replays=t_replay,
+                   trace_capture_call=TRACE_CAPTURE_CALL, device_ms=dev_ms,
                    ms_per_surface_per_mray=dev_ms / n_surf / (n / 1e6),
-                   device_busy_ms=busy_ms, device_kernels=n_kernels,
-                   device_busy_wall_ms=busy_wall_ms, idle_share=1.0 - busy_ms / busy_wall_ms,
-                   peak_device_bytes=int(peak), kept_section_bytes=int(kept_bytes))
+                   replay_device_busy_ms=busy_ms, replay_device_kernels=n_kernels,
+                   replay_device_busy_wall_ms=busy_wall_ms, replay_idle_share=1.0 - busy_ms / busy_wall_ms,
+                   graph=dict(pool_bytes=step.pool_bytes, reserved_growth_bytes=int(
+                       torch.cuda.memory_reserved() - reserved0),
+                              captured_kernel1_launches=captured[(conic_run, "launches")]),
+                   peak_device_bytes=dict(eager_miss=int(peak), capture=int(capture_peak),
+                                          replays=int(replay_peak)),
+                   kept_section_bytes=int(kept_bytes), replay_vs_fresh_raytracer="bit for bit")
         if name == "double_gauss":
             # the outputs of a stored trace read the card: no host array
             z_det = float(RTt.detectors[0].pos[2])
@@ -2112,7 +2190,7 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
         row.update(dead_before_end=dead, infos_rows=RTt._msgs.sum(axis=1).tolist())
         del arrays, eager, wl_
         if name == "double_gauss" and no_pol:
-            # scene A, scene B (another source power), scene A: a hit
+            # scene A, scene B (another source power), scene A: a replayed hit
             rs = RTt.ray_sources[0]
             power = rs.power
             rs.power = 2 * power
@@ -2126,19 +2204,50 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
             RTt.trace(n)
             t_a = time.perf_counter() - t0
             assert len(RTt._trace_cache) == entries == 3, entries       # 20000, N, N at 2× power
-            fresh = scene(ot, no_pol=no_pol)
-            fresh._seed_counter = seed
-            fresh.trace(n)
-            for k, t in RTt.rays._dev.items():
-                assert (t is None) == (fresh.rays._dev[k] is None), k
-                assert t is None or _same_bits(t, fresh.rays._dev[k]), k
-            assert np.array_equal(RTt._msgs, fresh._msgs)
+            assert step.graph is not None
+            _same_trace(ot, scene, RTt, n, seed, no_pol=no_pol)
             row["cache"] = dict(seconds_miss_a=t_miss, seconds_miss_b=t_b, seconds_hit_a=t_a,
                                 entries=entries, hit_vs_fresh_raytracer="bit for bit")
-            del fresh
+            # more graphed keys than the bound: N - 1, then N - 2 drops the
+            # graph of N, the least recently used
+            bound = dict(max_graphed_traces=MAX_GRAPHED_TRACES)
+            for m in (n - 1, n - 2):
+                for _ in range(TRACE_CAPTURE_CALL - 1):
+                    RTt.trace(m)
+                torch.cuda.synchronize()
+                before = dict(allocated=torch.cuda.memory_allocated(), reserved=torch.cuda.memory_reserved(),
+                              graphs=len(_held_graphs(RTt)))
+                RTt.trace(m)                        # the capture
+                torch.cuda.synchronize()
+                bound[f"N={m}"] = dict(before_capture=before, after_capture=dict(
+                    allocated=torch.cuda.memory_allocated(), reserved=torch.cuda.memory_reserved(),
+                    graphs=len(_held_graphs(RTt))), pool_bytes=RTt._trace_entry(m).run.pool_bytes)
+            held = _held_graphs(RTt)
+            assert len(held) == MAX_GRAPHED_TRACES and step.graph is None, len(held)
+            torch.cuda.empty_cache()
+            bound["after_empty_cache"] = dict(allocated=torch.cuda.memory_allocated(),
+                                              reserved=torch.cuda.memory_reserved())
+            bound["graphs_held"] = len(held)
+            row["graph_bound"] = bound
+            del held
         out.append(row)
-        del RTt, rays
+        del RTt, rays, entry, step
         torch.cuda.empty_cache()
+
+    # the steps scene: image source, filter, HURB at the ring aperture and an
+    # ideal lens, replayed against its eager trace
+    RTs = steps_scene(ot, use_hurb=True)
+    for _ in range(TRACE_CAPTURE_CALL + 1):
+        seed = RTs._seed_counter
+        RTs.trace(n)
+    entry = RTs._trace_entry(n)
+    assert entry.graphed and entry.run.graph is not None
+    _same_trace(ot, steps_scene, RTs, n, seed, use_hurb=True)
+    hurb_rows = int(RTs._msgs[4].sum())
+    out.append(dict(scene="steps_hurb", N=n, replay_vs_fresh_raytracer="bit for bit",
+                    pool_bytes=entry.run.pool_bytes, hurb_neg_dir_rays=hurb_rows))
+    del RTs, entry
+    torch.cuda.empty_cache()
     emit(dict(phase="trace", gpu=smi, cuda_fuse_planar=ot.global_options.cuda_fuse_planar, traces=out,
               cpu_reference_ms_per_surface_per_mray=CPU_REFERENCE_MS_PER_SURFACE_MRAY))
     return launches
@@ -3300,6 +3409,9 @@ def main():
     rows["bin_xyzw@sharded"] = main_shapes["bin_xyzw"]
     rows["conic_run[pol,store]@gui"] = main_shapes["conic_run[pol,store]"]
     rows["conic_run[nopol,store]@stack56"] = stack_store
+    rows["conic_run[nopol,store]@trace_replay"] = main_shapes["conic_run[nopol,store]"]
+    rows["conic_run[pol,store]@trace_replay"] = main_shapes["conic_run[pol,store]"]
+    rows["conic_run[nopol,store]@stack56_replay"] = stack_store
     rows.update(gui_rows)
     rows["conic_run[nopol,store]@read_path"] = main_shapes["conic_run[nopol,store]"]
     rows.update(read_rows)

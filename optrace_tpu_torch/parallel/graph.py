@@ -1,14 +1,18 @@
-"""A render step captured once into a CUDA graph and replayed: the port's
-counterpart of the ``jax.jit`` that the JAX package puts around each batch
-of its fused render (``optrace_tpu/tracer/raytracer.py``: ``iterative_render``
-and ``render_huge``; ``optrace_tpu/parallel/render.py``: the sharded step).
+"""A render step or a stored trace captured once into a CUDA graph and
+replayed: the port's counterpart of the ``jax.jit`` that the JAX package
+puts around each batch of its fused render (``optrace_tpu/tracer/raytracer.py``:
+``iterative_render`` and ``render_huge``; ``optrace_tpu/parallel/render.py``:
+the sharded step) and around the stored trace of one scene and N
+(``optrace_tpu/tracer/raytracer.py:_get_trace_fn``; the port's
+``Raytracer._trace_entry``).
 
 A batch of the fused render is some 650 small eager launches around the
-two kernels; replayed as one graph, the host launches it once. A step on a
-CUDA device (:class:`CapturedStep`) runs its first call eagerly, which is
-the warm-up: the runs' step tables and frame offsets are prepared and the
-kernels' libraries are loaded. The second call captures the
-batch on a side stream (``CUDAGraph.capture_begin``/``capture_end``), and
+two kernels, a stored trace some 550 to 630; replayed as one graph, the
+host launches it once. A step on a CUDA device (:class:`CapturedStep`) runs
+its first calls eagerly (one for a render step), which is the warm-up: the
+runs' step tables and frame offsets are prepared and the kernels'
+libraries are loaded. The next call captures the
+step on a side stream (``CUDAGraph.capture_begin``/``capture_end``), and
 every later call replays it on the caller's stream. A replay keeps the
 eager contract: with the generator of a batch it returns the image and
 INFOS of the eager step bit for bit, and advances the generator as far.
@@ -35,13 +39,16 @@ What a graph freezes, and how the step answers for it:
   was built with.
 - *The kernel switches* (``global_options.cuda_trace``, ``cuda_binning``,
   ``cuda_fuse_planar``), which an eager step reads at every call: when they
-  change, the graph is dropped and the next two calls warm up and capture
+  change, the graph is dropped and the next calls warm up and capture
   anew.
 - *The launch counters* of the kernel wrappers are Python counters. The
   capture's increments are taken back and every replay adds them, so a
   counter counts the launches that ran.
 - *The outputs* of a graph are its own buffers, which the next replay
   overwrites: a replay returns copies.
+- *Memory.* A graph keeps a private pool of device memory for its outputs
+  and temporaries (``pool_bytes``) as long as it lives; :meth:`CapturedStep.drop`
+  lets go of the graph and the pool with it, and the step warms up anew.
 
 A step that carries a derivative (an output that autograd records or that
 holds a forward-mode tangent) stays eager: a graph cannot replay autograd.
@@ -111,27 +118,48 @@ def _clone(tree):
     return tree
 
 
+def _switches() -> tuple:
+    """The kernel switches that a graph freezes."""
+    return (global_options.cuda_trace, global_options.cuda_binning, global_options.cuda_fuse_planar)
+
+
 def _carries_derivative(tree) -> bool:
     return any((t.requires_grad and torch.is_grad_enabled())
                or fwAD.unpack_dual(t).tangent is not None for t in _tensors(tree))
 
 
 class CapturedStep:
-    """A render step ``fn(gen) -> outputs`` on a CUDA device: the first call
-    eager, the second captured into a ``torch.cuda.CUDAGraph``, every later
-    call a replay (see the module's note).
+    """A step ``fn(gen) -> outputs`` on a CUDA device: the first
+    ``eager_calls`` calls eager, the next captured into a
+    ``torch.cuda.CUDAGraph``, every later call a replay (see the module's
+    note).
 
     :param fn: the eager step; it draws every random number from ``gen``
     :param device: the step's CUDA device
     :param scene: a function returning the scene's snapshot, taken when the
         step is built and compared before every call; ``None`` checks nothing
+    :param eager_calls: the eager calls before the capture (at least 1)
+    :param name: what the step is, for the error of a failed capture
     """
 
-    def __init__(self, fn, device, scene=None):
+    def __init__(self, fn, device, scene=None, eager_calls=1, name="render step"):
         self.fn, self.device = fn, torch.device(device)
+        self.eager_calls, self.name = max(1, int(eager_calls)), name
         self._scene = scene
         self._built = scene() if scene is not None else None
         self._switches = None
+        self._reset()
+
+    @property
+    def captures_next(self) -> bool:
+        """Whether the next call captures (under the kernel switches as
+        they are now)."""
+        return (self.graph is None and not self._eager_only and self._switches == _switches()
+                and self._calls >= self.eager_calls)
+
+    def drop(self):
+        """Let go of the graph and its pool: the next calls warm up and
+        capture anew."""
         self._reset()
 
     def _reset(self):
@@ -147,14 +175,13 @@ class CapturedStep:
             raise RuntimeError("the scene changed after this render step was built (a lens, "
                                "filter, aperture, source, the outline, the ambient medium or a "
                                "trace setting): build a new step")
-        switches = (global_options.cuda_trace, global_options.cuda_binning,
-                    global_options.cuda_fuse_planar)
+        switches = _switches()
         if switches != self._switches:
             self._reset()
             self._switches = switches
         if self.graph is not None:
             return self._replay(gen)
-        if self._calls and not self._eager_only:
+        if self._calls >= self.eager_calls and not self._eager_only:
             return self._capture(gen)
         self._calls += 1
         out = self.fn(gen)
@@ -162,6 +189,8 @@ class CapturedStep:
         return out
 
     def _capture(self, gen):
+        if self.device.type == "cuda" and self.device.index is None:    # as a generator names it
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if gen.device != self.device:
             raise ValueError(f"the generator lies on {gen.device}, the render on {self.device}")
         graph = torch.cuda.CUDAGraph()
@@ -189,8 +218,8 @@ class CapturedStep:
                 graph.capture_end()
         except Exception as err:
             _set_counts(before)
-            raise RuntimeError(f"the capture of the render step into a CUDA graph failed "
-                               f"({type(err).__name__}: {err}); on a CUDA device the step "
+            raise RuntimeError(f"the capture of the {self.name} into a CUDA graph failed "
+                               f"({type(err).__name__}: {err}); on a CUDA device it "
                                "does not run eagerly instead") from err
         cur.wait_stream(side)
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
@@ -217,11 +246,11 @@ class CapturedStep:
 MIN_BATCHES = 6
 
 
-def capture(fn, device, scene=None, batches=None):
+def capture(fn, device, scene=None, batches=None, eager_calls=1, name="render step"):
     """``fn`` as a :class:`CapturedStep` on a CUDA device; elsewhere ``fn``
     itself, which stays eager. ``batches``, where the caller knows it, is
     the number of calls it makes: below :data:`MIN_BATCHES` the step stays
     eager, since its capture would cost more than it saves."""
     if torch.device(device).type != "cuda" or (batches is not None and batches < MIN_BATCHES):
         return fn
-    return CapturedStep(fn, device, scene)
+    return CapturedStep(fn, device, scene, eager_calls, name)

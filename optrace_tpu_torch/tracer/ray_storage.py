@@ -67,8 +67,7 @@ class RayStorage(BaseClass):
     def __init__(self, **kwargs) -> None:
         self._lock = False
         self._fill_id = 0
-        self._dev = None        # the trace's f32 tensors p, w, pol (None under no_pol), n, wl
-        self._host = {name: np.array([]) for name in self._ARRAYS}   # arrays made or handed in
+        self.drop_arrays()
         self.N_list = np.array([], dtype=int)
         self.B_list = np.array([], dtype=int)
         self.no_pol = False
@@ -98,6 +97,13 @@ class RayStorage(BaseClass):
                     "Change the power ratio or raise the overall ray number")
         self.B_list = np.concatenate(([0], np.cumsum(self.N_list))).astype(int)
         self.ray_source_list = ray_source_list
+
+    def drop_arrays(self) -> None:
+        """Let go of the arrays of the last fill, as a storage holds none
+        before its first: a trace drops them before it makes its own, so
+        that they are freed where no one else holds them."""
+        self._dev = None        # the trace's f32 tensors p, w, pol (None under no_pol), n, wl
+        self._host = {name: np.array([]) for name in self._ARRAYS}   # arrays made or handed in
 
     def fill(self, p, w, pol, n, wl, s0=None) -> None:
         """Store a trace: its f32 tensors p (N, nt, 3), w (N, nt), pol

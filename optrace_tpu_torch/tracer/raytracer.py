@@ -2,13 +2,16 @@
 
 Counterpart of ``optrace_tpu/tracer/raytracer.py``: geometry checks with
 sampled collision detection and the sequential trace with INFOS warning
-counters. The trace runs eagerly on one device (``device=None`` is the CUDA
+counters. The trace runs on one device (``device=None`` is the CUDA
 device; the CPU only on request), rays are generated on that device from a
 ``torch.Generator``, and the stored sections stay there, in
 :class:`RayStorage`, whose host arrays (``RT.rays.p_list`` …) are made at
 their first read. What a trace needs besides the rays (its steps, their
 prepared runs and the sources' samplers) is kept for each scene and ray
-count, as the JAX package keeps a compiled trace (:meth:`Raytracer._trace_entry`).
+count, as the JAX package keeps a compiled trace (:meth:`Raytracer._trace_entry`);
+on a CUDA device the trace of a key is captured into a CUDA graph at its
+:data:`TRACE_CAPTURE_CALL`-th call and replayed after it, for at most
+:data:`MAX_GRAPHED_TRACES` keys at a time.
 ``detector_image``, ``detector_spectrum``, ``source_image`` and
 ``source_spectrum`` read the sections on the device, search the detector
 hits in f64 and bin them on the same device with sums that do not depend on
@@ -37,6 +40,7 @@ from ..geometry import (Group, Lens, IdealLens, Filter, Aperture, Detector, RayS
                         RectangularSurface, Point, Line)
 from ..image.render_image import RenderImage
 from ..ops.binning import block_sums
+from ..parallel.graph import CapturedStep, capture
 from ..spectrum.refraction_index import RefractionIndex
 from ..spectrum.light_spectrum import LightSpectrum
 from ..analysis import focus
@@ -46,12 +50,67 @@ from ..utils.property_checker import PropertyChecker as pc
 from ..utils.progress_bar import ProgressBar
 from ..utils.warnings import warning
 
-# what a trace of one scene and ray count needs besides its rays: the tracing
-# elements and sources it was built from (kept, so that no object the
-# snapshot names by identity can be freed and replaced unnoticed), the steps,
-# their prepared runs and the function that draws the rays
-_TraceEntry = namedtuple("_TraceEntry", "elements sources steps plans source_fn")
 TRACE_CACHE_SIZE = 32       # entries of the trace cache, as in the JAX package
+# A trace entry's graph holds a private pool of about the eager trace's peak
+# (its outputs and the trace's temporaries: on the H100 0.80 GB for the double
+# Gauss at 10⁶ rays without polarization, 1.20 GB with it, 2.27 GB for the
+# 57-surface stack; PERF.md §5), so only the entries of the last few keys
+# traced keep one: the least recently used loses its graph first.
+MAX_GRAPHED_TRACES = 2
+# A key's trace is captured at its TRACE_CAPTURE_CALL-th call. On the H100 at
+# 10⁶ rays a double-Gauss hit without polarization took 12.9–14.4 ms eager and
+# 9.2–9.8 ms replayed, and the capture with its first replay 0.029 s (PERF.md
+# §5; with polarization and on the 57-surface stack the replay saves 8 ms a
+# hit and the capture costs as much). The capture costs about 16 ms more than
+# an eager hit, which four replays win back (4 × 4.2 ms); capturing after as
+# many eager hits as a capture costs keeps a key that is traced only a few
+# times within twice its best cost: the miss, four eager hits, the capture.
+TRACE_CAPTURE_CALL = 6
+
+
+class _TraceEntry(namedtuple("_TraceEntry", "elements sources steps plans source_fn run eager_reason")):
+    """What a trace of one scene and ray count needs besides its rays: the
+    tracing elements and sources it was built from (kept, so that no object
+    the snapshot names by identity can be freed and replaced unnoticed), the
+    steps, their prepared runs, the function that draws the rays, and
+    ``run(gen) -> (p, w, pol, n, wl, infos)``, the whole trace: eager, or on
+    a CUDA device a :class:`CapturedStep` that is captured at the key's
+    :data:`TRACE_CAPTURE_CALL`-th call and replayed after it.
+    ``eager_reason`` says why a trace stays eager (None where it is
+    graphed)."""
+
+    @property
+    def graphed(self) -> bool:
+        """Whether the trace is captured at its key's
+        :data:`TRACE_CAPTURE_CALL`-th call."""
+        return isinstance(self.run, CapturedStep)
+
+    def drop(self) -> None:
+        """Let go of the graph and its pool, where there is one."""
+        if self.graphed:
+            self.run.drop()
+
+
+def _eager_reason(steps: list, sources: list) -> str | None:
+    """Why a trace of these steps and sources cannot be captured into a CUDA
+    graph, or None: a user function that the trace calls (a function
+    surface's, a "Function" medium's or spectrum's, a source's orientation
+    function) may make a tensor from host data, which a capture cannot
+    record, and a data surface's sag is the surface object's own code as
+    well. Decided before any capture, from the scene alone."""
+    for i, st in enumerate(steps):
+        if st.sfns.kind == "generic":
+            return f"step {i} is a function or data surface: its sag, normals and mask run the " \
+                   "surface object's own Python code"
+        for fn in (st.n1_fn, st.n2_fn, st.spectrum_fn):
+            if getattr(fn, "spectrum_type", None) == "Function":
+                return f"step {i} evaluates a user function ({type(fn).__name__} of type 'Function')"
+    for i, src in enumerate(sources):
+        if src.orientation == "Function":
+            return f"ray source {i} has a user orientation function (orientation='Function')"
+    return None
+
+
 # what the geometry checks of one scene found: the warnings they raised, in
 # order, whether the scene has an error and where a collision lies (None:
 # fault_pos stays as it was), with the objects the checks were made on
@@ -123,6 +182,8 @@ class Raytracer(Group):
     def clear(self) -> None:
         super().clear()
         self.rays.__init__()
+        for entry in self._trace_cache.values():
+            entry.drop()
         self._trace_cache.clear()
         self._geometry_cache.clear()
 
@@ -161,19 +222,23 @@ class Raytracer(Group):
         return tuple(tuple(snap[k]) for k in ("Lenses", "Filters", "Apertures", "RaySources",
                                                "Ambient", "TraceSettings"))
 
-    def _cached(self, cache: OrderedDict, key, elements: list, sources: list, build):
+    def _cached(self, cache: OrderedDict, key, elements: list, sources: list, build, evict=None):
         """The entry of ``key`` in an LRU cache of :data:`TRACE_CACHE_SIZE`
         entries that evicts one oldest entry at a time; ``build()`` makes
         it where there is none, or where the entry was made from other
-        element or source objects than those now in the scene."""
+        element or source objects than those now in the scene.
+        ``evict(entry)``, where given, is called for each entry that leaves."""
         entry = cache.get(key)
         if entry is not None and len(entry.elements) == len(elements) \
                 and all(a is b for a, b in zip(entry.elements + entry.sources, elements + sources)):
             cache.move_to_end(key)
             return entry
-        cache.pop(key, None)
+        gone = [cache.pop(key)] if key in cache else []
         while len(cache) >= TRACE_CACHE_SIZE:
-            cache.popitem(last=False)
+            gone.append(cache.popitem(last=False)[1])
+        if evict is not None:
+            for old in gone:
+                evict(old)
         entry = cache[key] = build()
         return entry
 
@@ -357,9 +422,10 @@ class Raytracer(Group):
         return steps
 
     def _trace_entry(self, N: int, snap: dict = None) -> _TraceEntry:
-        """Steps, prepared runs and ray source function of a trace of N rays
-        through the scene as it is now: the counterpart of the JAX
-        package's ``_get_trace_fn``. An entry is kept for each key, the
+        """Steps, prepared runs, ray source function and the whole trace of
+        N rays through the scene as it is now: the counterpart of the JAX
+        package's ``_get_trace_fn``, whose ``jax.jit`` the trace's CUDA
+        graph stands for. An entry is kept for each key, the
         scene part of the tracing snapshot (``snap``, taken here when not
         given; :meth:`_scene_key`), the rays a source draws
         (``rays.N_list``, set by ``rays.init``), the device and N, in a
@@ -367,7 +433,8 @@ class Raytracer(Group):
         (:meth:`_cached`; ``clear()`` empties it). An entry also holds the
         element and source objects it was built from, and is built anew
         when another object stands in their place. The entries hold tables
-        (kB to MB), never rays."""
+        (kB to MB), never rays, except that of a graphed trace: its
+        graph's pool (:data:`MAX_GRAPHED_TRACES`)."""
         elements = self._tracing_elements()[:-1]    # the end absorber follows from the outline
         sources = list(self.ray_sources)
         snap = self.tracing_snapshot() if snap is None else snap
@@ -375,8 +442,38 @@ class Raytracer(Group):
 
         def build():
             steps = self._build_steps()
-            return _TraceEntry(elements, sources, steps, RunPlans(steps), self._make_source_fn(N))
-        return self._cached(self._trace_cache, key, elements, sources, build)
+            plans, source_fn = RunPlans(steps), self._make_source_fn(N)
+            # the ambient medium with its table on the device, as the steps
+            # hold theirs: a call copies nothing from the host
+            n0_fn = self.n0.on_device(self.device)
+            outline = tuple(float(v) for v in self.outline)
+            no_pol, use_hurb, hurb_factor = self.no_pol, self.use_hurb, float(self.HURB_FACTOR)
+
+            def trace_fn(gen):
+                with torch.no_grad():
+                    p, s, pols, w, wl = source_fn(gen)
+                    out = trace_bundle(steps, n0_fn, outline, p, s, pols, w, wl, no_pol, use_hurb,
+                                       gen=gen, hurb_factor=hurb_factor, plans=plans)
+                return out["p"], out["w"], out["pol"], out["n"], out["wl"], out["infos"]
+
+            reason = _eager_reason(steps, sources)
+            run = trace_fn if reason else capture(trace_fn, self.device, eager_calls=TRACE_CAPTURE_CALL - 1,
+                                                  name="stored trace")
+            if reason is None and run is trace_fn:
+                reason = f"a trace on {self.device} runs eagerly (CUDA graphs are for CUDA devices)"
+            return _TraceEntry(elements, sources, steps, plans, source_fn, run, reason)
+        return self._cached(self._trace_cache, key, elements, sources, build, _TraceEntry.drop)
+
+    def _bound_graphs(self, entry: _TraceEntry) -> None:
+        """Before ``entry`` captures its trace, drop the graphs of the least
+        recently used other entries until :data:`MAX_GRAPHED_TRACES` graphs
+        at most remain with the new one."""
+        if not (entry.graphed and entry.run.captures_next):
+            return
+        held = [e for e in self._trace_cache.values()
+                if e is not entry and e.graphed and e.run.graph is not None]     # oldest first
+        for e in held[:max(0, len(held) - MAX_GRAPHED_TRACES + 1)]:
+            e.drop()
 
     def _make_source_fn(self, N: int, device=None):
         """Ray generation for all sources with static per-source counts:
@@ -418,17 +515,18 @@ class Raytracer(Group):
         self._seed_counter += 1
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._seed_counter)
-        with torch.no_grad():
-            p, s, pols, w, wl = entry.source_fn(gen)
-            out = trace_bundle(entry.steps, self.n0, tuple(float(v) for v in self.outline),
-                               p, s, pols, w, wl, self.no_pol, self.use_hurb, gen=gen,
-                               hurb_factor=float(self.HURB_FACTOR), plans=entry.plans)
+        self._bound_graphs(entry)
+        # the last trace's tensors go first, where no one else holds them
+        self.rays.drop_arrays()
+        # a replayed trace returns copies of its graph's outputs, which the
+        # next replay overwrites
+        p, w, pol, n, wl, infos = entry.run(gen)
         # the sections stay on the device: the storage makes its host arrays
         # at their first read
-        self.rays.fill(out["p"], out["w"], out["pol"], out["n"], out["wl"])
+        self.rays.fill(p, w, pol, n, wl)
         self.rays.lock()
-        self._msgs = out["infos"].cpu().numpy().astype(int)      # the one copy: waits for the trace
-        del out
+        self._msgs = infos.cpu().numpy().astype(int)      # the one copy: waits for the trace
+        del p, w, pol, n, wl, infos
         bar.update()
         self._show_messages(N)
         bar.finish()

@@ -53,7 +53,10 @@ image object); the first full read of ``RT.rays`` taken apart
 (``first_read_split``: copies, page faults, pinned memory, the f64
 conversions, ``s0``); and the plain host clock of each call beside. With
 ``--root`` it splits an earlier tree the same way; a function that the
-tree does not have is listed under ``missing``.
+tree does not have is listed under ``missing``. For a replayed ``trace``
+it also splits the device time by kind (``trace_device_split``: kernel 1,
+source sampling, media, sections, INFOS counters, the rest, each with its
+launches).
 
 ``--design`` profiles the design render of chip_smoke.py's design phase
 (``tracer/diff.py:make_parameterized_render`` of the double Gauss, 189²
@@ -428,12 +431,14 @@ def split_targets():
     from optrace_tpu_torch import color as color_mod
     from optrace_tpu_torch.tracer import raytracer as rt_mod, ray_storage
     from optrace_tpu_torch.image import render_image as ri_mod
+    from optrace_tpu_torch.parallel import graph as graph_mod
 
     Raytracer, RayStorage, RenderImage = rt_mod.Raytracer, ray_storage.RayStorage, ri_mod.RenderImage
     trace = [(Raytracer, "_geometry_checks", "geometry_checks"),
              (Raytracer, "tracing_snapshot", "tracing_snapshot"),
              (Raytracer, "_trace_entry", "trace_entry"),
              (rt_mod, "trace_bundle", "launches_trace"),
+             (graph_mod.CapturedStep, "_replay", "replay"),
              (RayStorage, "fill", "fill"),
              (torch.Tensor, "cpu", "wait_for_infos"),
              (Raytracer, "_show_messages", "messages")]
@@ -469,6 +474,182 @@ def split_call(fn, targets=(), sync=False):
     return dict(wall_s=wall, **st.split(wall)), out
 
 
+TRACE_KINDS = ("kernel_1", "source_sampling", "media", "sections", "infos", "rest")
+MIN_MATCHED_SHARE = 0.98        # of the eager run's kernels, matched in a replay
+
+
+def _kernel_name(name):
+    """A kernel's name as an eager launch and a graph's node both report it."""
+    return "memset" if "emset" in name else name
+
+
+def trace_kind(op, prev_kind=None) -> str:
+    """The kind of the trace's work (:data:`TRACE_KINDS`) that a profiled
+    operator ``op`` of :func:`labelled_trace` does, from the nearest label
+    around it and the operators it is part of: the sources' sampling and
+    the media (labelled), the INFOS counters (``count_nonzero``, the run's
+    counters, the counters' zeros and sums in ``trace_bundle``), the steps
+    outside the runs (labelled, "rest") and, directly in ``trace_bundle``,
+    the media table (the stack right after the media), the sections (the
+    absolute positions, the stacks of the per-section tensors, the INFOS
+    stack among them) and the rest (frame shifts, absorption, HURB draws).
+    ``prev_kind`` is the kind of the work launched before."""
+    ops, label, e = set(), None, op
+    while e is not None:
+        if e.name.startswith("aten::"):
+            ops.add(e.name)
+        elif e.name.startswith("trace:") and label is None:
+            label = e.name[len("trace:"):]
+        e = e.cpu_parent
+    if label in ("source_sampling", "media"):
+        return label
+    if "aten::count_nonzero" in ops or label == "run":     # kernel 1 goes by its name
+        return "infos"
+    if label == "step":
+        return "rest"
+    if ops & {"aten::zeros", "aten::zero_", "aten::add_"}:
+        return "infos"
+    if ops & {"aten::stack", "aten::cat"}:
+        return "media" if prev_kind == "media" else "sections"
+    if "aten::add" in ops:                                  # p_abs = p + off
+        return "sections"
+    return "rest"
+
+
+def labelled_trace(RT, n):
+    """``(run, restore)``: ``run(gen)`` is the trace function of ``RT``'s
+    entry for ``n`` rays (the sources' sampling and ``trace_bundle``, the
+    operations that its graph captured, in the same order) with
+    ``torch.profiler.record_function`` labels that :func:`trace_kind`
+    reads: ``trace:source_sampling`` around the sampling, ``trace:media``
+    around every medium's evaluation, ``trace:step`` around the functions
+    of an unrolled step and ``trace:run`` around a run's dispatch.
+    ``restore()`` puts the wrapped functions of ``trace_core`` back."""
+    import functools
+    import torch
+    from torch.profiler import record_function
+    from optrace_tpu_torch.tracer import trace_core
+
+    def labelled(fn, label):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    saved = [(name, getattr(trace_core, name)) for name in
+             ("_surface_hit", "_refract", "_refract_ideal", "_hurb", "_outline_intersection",
+              "_conic_run_dispatch")]
+    for name, fn in saved:
+        setattr(trace_core, name, labelled(fn, "trace:run" if name == "_conic_run_dispatch" else "trace:step"))
+
+    def restore():
+        for name, fn in saved:
+            setattr(trace_core, name, fn)
+
+    media = {}          # by identity, as the media rows are made
+
+    def medium(fn):
+        if fn is None:
+            return None
+        return media.setdefault(id(fn), labelled(fn, "trace:media"))
+    entry = RT._trace_entry(n)
+    steps = [st._replace(n1_fn=medium(st.n1_fn), n2_fn=medium(st.n2_fn)) for st in entry.steps]
+    n0_fn, plans = medium(RT.n0.on_device(RT.device)), trace_core.RunPlans(steps)
+    outline = tuple(float(v) for v in RT.outline)
+
+    def run(gen):
+        with torch.no_grad():
+            with record_function("trace:source_sampling"):
+                p, s, pols, w, wl = entry.source_fn(gen)
+            return trace_core.trace_bundle(steps, n0_fn, outline, p, s, pols, w, wl, RT.no_pol, RT.use_hurb,
+                                           gen=gen, hurb_factor=float(RT.HURB_FACTOR), plans=plans)
+    return run, restore
+
+
+def trace_device_split(RT, n, reps=3):
+    """Device ms and launches of a replayed ``trace`` of ``n`` rays, by kind
+    (:data:`TRACE_KINDS`): kernel 1 by its name; every other kernel of the
+    replay, in the order the card ran it, matched one for one to the
+    kernels of an eager run of :func:`labelled_trace` in the order the card
+    ran them (the longest matching blocks of their names), each of which the
+    profiler ties to the operator that launched it (the runtime call with
+    the kernel's correlation id, and the operator around that call;
+    :func:`trace_kind`). Copies (the replay's outputs, the INFOS counters to
+    the host) are left out; a replay's kernel that matches none (the
+    graph's generator state) counts as "rest". The eager run's own split
+    stands beside it; where fewer than :data:`MIN_MATCHED_SHARE` of the
+    eager kernels match, only the eager split is given. The median over
+    ``reps`` replays of each kind's time."""
+    import difflib
+    import statistics
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+
+    if not getattr(RT._trace_entry(n), "graphed", False):
+        return dict(graphed=False)          # a tree without the trace's graph
+    from optrace_tpu_torch.tracer.raytracer import TRACE_CAPTURE_CALL
+    for _ in range(TRACE_CAPTURE_CALL):
+        RT.trace(n)
+    assert RT._trace_entry(n).run.graph is not None, "the trace was not captured"
+
+    def device_events(prof):
+        # kernels and memsets; not the labels' ranges on the device's timeline
+        return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                       and not e.name.startswith(("Memcpy", "trace:"))), key=lambda e: e.time_range.start)
+
+    def split(rows):
+        out = {k: dict(ms=0.0, launches=0) for k in TRACE_KINDS}
+        for kind, us in rows:
+            out[kind]["ms"] += us / 1e3
+            out[kind]["launches"] += 1
+        return out
+
+    run, restore = labelled_trace(RT, n)
+    try:
+        gen = torch.Generator(device=RT.device)
+        gen.manual_seed(1)
+        run(gen)                            # prepares the labelled run's tables
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run(gen)
+            torch.cuda.synchronize()
+    finally:
+        restore()
+    launch = {e.id: e for e in prof.events() if e.device_type == DeviceType.CPU and e.name.startswith("cuda")}
+    eager, kind = [], None
+    for d in device_events(prof):
+        op = launch[d.id].cpu_parent if d.id in launch else None
+        kind = "kernel_1" if "conic_run_kernel" in d.name else trace_kind(op, kind) if op else "rest"
+        eager.append((_kernel_name(d.name), kind, d.time_range.elapsed_us()))
+    res = dict(eager_run=split([(kind, us) for _, kind, us in eager]), eager_kernels=len(eager),
+               eager_kernels_without_operator=sum(d.id not in launch for d in device_events(prof)))
+    replays = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            RT.trace(n)
+            torch.cuda.synchronize()
+        dev = device_events(prof)
+        got, want = [_kernel_name(d.name) for d in dev], [name for name, _, _ in eager]
+        kinds = ["rest"] * len(dev)         # a replay's kernel that no eager kernel matches
+        blocks = difflib.SequenceMatcher(None, got, want, autojunk=False).get_matching_blocks()
+        for b in blocks:
+            for j in range(b.size):
+                kinds[b.a + j] = eager[b.b + j][1]
+        matched = sum(b.size for b in blocks)
+        if matched < MIN_MATCHED_SHARE * len(want):
+            res.update(replay_kernels=len(dev), replay_matched_to_eager=False, matched_kernels=matched)
+            return res
+        replays.append(split([(k, d.time_range.elapsed_us()) for k, d in zip(kinds, dev)]))
+    res.update(replay_matched_to_eager=True, replay_kernels=len(dev), matched_kernels=matched)
+    res["replay"] = {k: dict(ms=statistics.median(r[k]["ms"] for r in replays),
+                             launches=replays[0][k]["launches"]) for k in TRACE_KINDS}
+    res["replay_busy_ms"] = sum(v["ms"] for v in res["replay"].values())
+    return res
+
+
 def trace_times(args, smi):
     """The stored trace's path split stage by stage, by the host's clock:
     ``trace`` on a cache hit, ``detector_image``, ``get`` and the first full
@@ -487,7 +668,9 @@ def trace_times(args, smi):
         RT = scene(ot, no_pol=no_pol)
         RT.trace(20000)
         RT.trace(args.rays)                 # builds the kernels, warms up; a miss
-        row = dict(trace_s=[], first_full_read_s=[])
+        # the device time of a replayed trace, by kind (its calls capture the
+        # trace, so that the hits below are replays)
+        row = dict(device_split=trace_device_split(RT, args.rays), trace_s=[], first_full_read_s=[])
         for _ in range(args.batches):       # the plain clock, no target wrapped
             torch.cuda.synchronize()
             t0 = time.perf_counter()
