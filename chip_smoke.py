@@ -11,7 +11,10 @@ captured as a CUDA graph against the eager batch bit for bit (image, INFOS,
 generator advance, launches, a replay under the sync debug mode's "error",
 a refusal after a scene change, ``render_huge`` of 4, 8 and 20 batches with
 its step captured against the same batches eager), runs the stored trace of
-the double Gauss and of the 57-surface stack (its sections stay on the card:
+the double Gauss and of the 57-surface stack (kernel 1 writes its runs'
+sections straight into the trace's (N, nt, 3) buffers, held bit for bit
+against its plain version writing into the same columns and against the
+route that stacks every section; its sections stay on the card:
 ``trace`` with no host read, then the first full read of ``RT.rays``; device
 busy ms and idle share; no host array made by the outputs; a cache hit
 against a miss and against a fresh raytracer), carries a stored trace of the
@@ -361,10 +364,10 @@ class RunRecorder:
         self.module, self.calls = trace_core, []
         self.real = trace_core.conic_run
 
-        def recorder(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None):
+        def recorder(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None, out=None):
             self.calls.append(dict(p=p, s=s, w=w, n_tab=n_tab, med_idx=med_idx, steps=steps,
-                                   pol=pol, store=store, plan=plan))
-            return self.real(p, s, w, n_tab, med_idx, steps, pol=pol, store=store, plan=plan)
+                                   pol=pol, store=store, plan=plan, out=out))
+            return self.real(p, s, w, n_tab, med_idx, steps, pol=pol, store=store, plan=plan, out=out)
         trace_core.conic_run = recorder
         return self
 
@@ -484,6 +487,101 @@ def check_run_calls(calls, label, plain_reps=3):
     res["bound_by"] = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
     res["bound_bytes_ms"], res["bound_ops_ms"] = bound_bytes_ms, bound_ops_ms
     res["library_ms"] = None
+    return res
+
+
+def _nan_slots(out):
+    """Fresh buffers of the shapes of the SectionSlots ``out``, all NaN,
+    with its first column."""
+    import torch
+
+    def nan(t):
+        return None if t is None else torch.full_like(t, float("nan"))
+    return type(out)(nan(out.p), nan(out.w), nan(out.n), nan(out.pol), out.col0)
+
+
+def _slots_agree(a, b, L, label):
+    """Assert every buffer of two SectionSlots bit for bit, the columns
+    outside the run's L NaN and those of the run written."""
+    import torch
+    cols = torch.zeros(a.nt, dtype=torch.bool, device=a.p.device)
+    cols[a.col0:a.col0 + L] = True
+    for name in ("p", "w", "n", "pol"):
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None:
+            assert y is None, f"{label}: {name}"
+            continue
+        assert _same_bits(x, y), f"{label}: {name} differs in {_differing_bits(x, y)} values"
+        assert bool(torch.isnan(x[:, ~cols]).all()), f"{label}: {name} written outside its columns"
+        assert not bool(torch.isnan(x[:, cols]).any()), f"{label}: {name} left a run column unwritten"
+
+
+def check_slot_calls(calls, label, plain_reps=3):
+    """Kernel 1 writing its sections into the trace's buffers
+    (``SectionSlots``: the run's columns of (N, nt, 3) and (N, nt)) against
+    ``conic_run_reference(out=...)`` on the recorded calls, both into fresh
+    NaN-filled buffers: every buffer, the final state and the counts bit
+    for bit, the columns outside the run left NaN. A run with an absorb step
+    is run again with the step's media pair moved to a row that the step
+    before it did not read: the absorb step's n column is that (ambient)
+    row, for live and dead rays. Device ms of the kernel, plain ms and the
+    bound (as :func:`check_run_calls`, with 4 B more a ray-step for n)."""
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run, conic_run_reference, step_tag
+
+    res = dict(name=label, N=int(calls[0]["p"].shape[0]), steps=[len(c["steps"]) for c in calls],
+               columns=[[c["out"].col0, c["out"].col0 + len(c["steps"])] for c in calls],
+               nt=calls[0]["out"].nt, max_abs_err=0.0, bit_equal=True, untouched_columns_nan=True,
+               ambient_rows_checked=0, ms=0.0, plain_ms=0.0, bytes=0, operations=0, library_ms=None)
+    bound_bytes_ms = bound_ops_ms = 0.0
+    for c in calls:
+        args = (c["p"], c["s"], c["w"], c["n_tab"], c["med_idx"], c["steps"])
+        kw = dict(pol=c["pol"], store=True)
+        N, L = c["p"].shape[0], len(c["steps"])
+        sk, sr = _nan_slots(c["out"]), _nan_slots(c["out"])
+        state_k, (ck, *none_k) = conic_run(*args, plan=c["plan"], out=sk, **kw)
+        state_r, (cr, *_) = conic_run_reference(*args, out=sr, **kw)
+        torch.cuda.synchronize()
+        assert none_k == [None, None, None]
+        assert all(x is None or _same_bits(x, y) for x, y in zip(state_k, state_r)), f"{label}: state"
+        assert torch.equal(ck, cr), f"{label}: counts"
+        _slots_agree(sk, sr, L, label)          # so max_abs_err stays 0.0
+        tags = [step_tag(x) for x in c["steps"]]
+        absorbs = [j for j, t in enumerate(tags) if t.startswith("absorb")]
+        M = c["n_tab"].shape[0]
+        if absorbs and M > 1:
+            med = list(c["med_idx"])
+            for j in absorbs:
+                prev = med[j - 1][1] if j else med[j][0]
+                moved = (prev + 1) % M
+                med[j] = (moved, moved)
+            ak, ar = _nan_slots(c["out"]), _nan_slots(c["out"])
+            conic_run(*args[:4], med, args[5], out=ak, **kw)
+            conic_run_reference(*args[:4], med, args[5], out=ar, **kw)
+            _slots_agree(ak, ar, L, label + ",ambient")
+            for j in absorbs:
+                assert _same_bits(ak.n[:, ak.col0 + j], c["n_tab"][med[j][1]]), f"{label}: ambient n"
+            res["ambient_rows_checked"] += len(absorbs)
+            del ak, ar
+        res["ms"] += device_kernel_ms(lambda: conic_run(*args, plan=c["plan"], out=sk, **kw),
+                                      "conic_run_kernel")
+        res["plain_ms"] += cuda_ms(lambda: conic_run_reference(*args, out=sr, **kw), reps=plain_reps,
+                                   warmup=1 if plain_reps > 1 else 0)
+        with_pol = c["pol"] is not None
+        state_b = 28 + (12 if with_pol else 0)
+        M_read = len({r for pair, t in zip(c["med_idx"], tags) if not t.startswith("absorb") for r in pair})
+        nbytes = N * (2 * state_b + 4 * M_read) + L * 16 + N * L * (20 + (12 if with_pol else 0))
+        w_cols = sr.w[:, sr.col0:sr.col0 + L]
+        alive = [int((c["w"] > 0).sum())] + [int(v) for v in (w_cols[:, :-1] > 0).sum(dim=0).tolist()]
+        ops = sum(a * RUN_OPS_PER_RAY_STEP[t] for a, t in zip(alive, tags))
+        res["bytes"] += nbytes
+        res["operations"] += ops
+        bound_bytes_ms += nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms += ops / F32_OPS_PER_S * 1e3
+        del sk, sr
+    res["bound_ms"] = max(bound_bytes_ms, bound_ops_ms)
+    res["bound_by"] = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    res["bound_bytes_ms"], res["bound_ops_ms"] = bound_bytes_ms, bound_ops_ms
     return res
 
 
@@ -2073,7 +2171,11 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
     the peak device memory of the eager, capturing and replayed traces; the
     replayed trace against a fresh raytracer's eager trace at the same seed
     counter, bit for bit, and kernel 1 counted in the replay as in the
-    eager trace. On the double Gauss: no host array made through trace →
+    eager trace (every run writing into the trace's buffers); the sections
+    written in place against the stacked route (kernel 1 in the (L, N)
+    layout and every section stacked at the end, as a derivative's route
+    still runs), bit for bit, with the device ms of both. The stack with
+    polarization, traced once. On the double Gauss: no host array made through trace →
     detector_image → detector_spectrum → source_image → focus_search; scene
     A, scene B, scene A (a replayed hit) beside the miss; the arrays made at
     the first read against an eager ``.cpu()`` conversion of the same
@@ -2083,6 +2185,7 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
     import numpy as np
     import torch
     from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.tracer import trace_core
     from optrace_tpu_torch.tracer.raytracer import MAX_GRAPHED_TRACES, TRACE_CAPTURE_CALL
     from optrace_tpu_torch.tracer.trace_core import trace_bundle
     launches, out = {}, []
@@ -2104,9 +2207,11 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
         if name == "double_gauss":
             assert stored_runs == dg_runs, stored_runs
         assert conic_run.variant_launches == {(not no_pol, True): len(stored_runs)}, conic_run.variant_launches
+        assert conic_run.slot_launches == len(stored_runs), "a run of the trace wrote no slots"
         label = ("conic_run[nopol,store]" if no_pol else "conic_run[pol,store]") \
             + ("" if name == "double_gauss" else "@stack56")
         launches[label] = conic_run.launches
+        launches[label.replace("]", ",slots]")] = conic_run.slot_launches
         rays = RTt.rays
         assert rays._host == {} and rays.N == n and rays.Nt == n_surf + 2
         kept_bytes = sum(t.numel() * t.element_size() for t in rays._dev.values() if t is not None)
@@ -2144,12 +2249,33 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
         def dev_trace():
             with torch.no_grad():
                 return trace_bundle(steps, RTt.n0, outl, *src(ot.make_generator(5)), no_pol)
+
+        class StackedSections(trace_core._Sections):
+            # the route that a derivative takes: kernel 1 in the (L, N) layout
+            # and every section stacked at the end, as the trace ran before
+            def __init__(self, *args):
+                super().__init__(*args)
+                self.to_lists()
+
+        def stacked_trace():
+            real = trace_core._Sections
+            trace_core._Sections = StackedSections
+            try:
+                return dev_trace()
+            finally:
+                trace_core._Sections = real
+        a, b = dev_trace(), stacked_trace()
+        for k in ("p", "w", "pol", "n", "infos"):
+            assert (a[k] is None) == (b[k] is None) and (a[k] is None or _same_bits(a[k], b[k])), k
+        del a, b
         dev_ms = cuda_ms(dev_trace, reps=3, warmup=1)
+        dev_ms_stacked = cuda_ms(stacked_trace, reps=3, warmup=1)
         del steps, src
         row = dict(scene=name, no_pol=no_pol, N=n, surfaces=n_surf, sections=[n, n_surf + 2, 3],
                    trace_seconds_miss=t_miss, trace_seconds_eager_hits=t_eager,
                    trace_seconds_capture=t_capture, trace_seconds_replays=t_replay,
                    trace_capture_call=TRACE_CAPTURE_CALL, device_ms=dev_ms,
+                   device_ms_stacked_route=dev_ms_stacked, in_place_vs_stacked_route="bit for bit",
                    ms_per_surface_per_mray=dev_ms / n_surf / (n / 1e6),
                    replay_device_busy_ms=busy_ms, replay_device_kernels=n_kernels,
                    replay_device_busy_wall_ms=busy_wall_ms, replay_idle_share=1.0 - busy_ms / busy_wall_ms,
@@ -2233,6 +2359,19 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
         out.append(row)
         del RTt, rays, entry, step
         torch.cuda.empty_cache()
+
+    # the stack with polarization: one trace, its run of 56 writing the
+    # polarization's columns as well
+    RTp = synthetic_stack_scene(ot, no_pol=False)
+    RTp.trace(20000)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    RTp.trace(n)
+    assert conic_run.variant_launches == {(True, True): 1} and conic_run.slot_launches == 1
+    launches["conic_run[pol,store,slots]@stack56"] = conic_run.slot_launches
+    assert tuple(RTp.rays._dev["pol"].shape) == (n, len(RTp.tracing_surfaces) + 2, 3)
+    del RTp
+    torch.cuda.empty_cache()
 
     # the steps scene: image source, filter, HURB at the ring aperture and an
     # ideal lens, replayed against its eager trace
@@ -2594,15 +2733,22 @@ def main():
                 "conic_run[nopol,store]": (True, True),
                 "conic_run[pol,store]": (False, True)}
 
-    def run_variants(scene, expect_steps, suffix, seed, **kw):
+    def run_variants(scene, expect_steps, suffix, seed, slots=False, **kw):
         """Kernel against plain version for the three variants on the calls
-        that a trace of the scene records. Returns the results by label
-        and the recorded calls of the [nopol,store] variant."""
+        that a trace of the scene records, in the (L, N) layout of the TPU
+        kernel; with ``slots`` also the stored variants writing into the
+        trace's (N, nt) buffers, as the trace calls them (labels
+        ``[...,slots]``). Returns the results by label and the recorded
+        calls of the [nopol,store] variant."""
         out, kept = {}, None
         for label, (no_pol, store) in variants.items():
             calls = capture_run_calls(scene(ot, no_pol), N_RAYS, store, seed=seed)
             assert [len(c["steps"]) for c in calls] == expect_steps, [len(c["steps"]) for c in calls]
+            assert all((c["out"] is not None) == store for c in calls), "the trace wrote no slots"
             out[label] = check_run_calls(calls, label + suffix, **kw)
+            if slots and store:
+                slot_label = label.replace("]", ",slots]")
+                out[slot_label] = check_slot_calls(calls, slot_label + suffix, **kw)
             if label == "conic_run[nopol,store]":
                 kept = calls
             del calls
@@ -2610,11 +2756,11 @@ def main():
         return out, kept
 
     # (a) one 56-step run of the 28-lens spherical stack
-    stack, _ = run_variants(synthetic_stack_scene, [56], "@stack56", seed=11)
+    stack, _ = run_variants(synthetic_stack_scene, [56], "@stack56", seed=11, slots=True)
     # (b) the main path's own shapes: the runs of the double Gauss under the
     # default of cuda_fuse_planar
     dg_runs = [15] if fuse_default else [6, 8]
-    main_shapes, _ = run_variants(double_gauss_scene, dg_runs, "", seed=12)
+    main_shapes, _ = run_variants(double_gauss_scene, dg_runs, "", seed=12, slots=True)
     # binning: rays spread over 1.2 × the extent, and the render's own input
     g = ot.make_generator(13)
     ext = (-43.265, 43.265, -43.265, 43.265)
@@ -2645,6 +2791,7 @@ def main():
                               flips_per_mray=FLIPS_PER_MRAY),
               ops_per_ray_step=RUN_OPS_PER_RAY_STEP))
     stack_store = stack["conic_run[nopol,store]"]      # the stored trace of the stack: phase trace
+    stack_slots = {k: v for k, v in stack.items() if "slots" in k}
     del stack
 
     # ---- the paths: before each drive the counters are set to 0, right ----
@@ -2979,7 +3126,7 @@ def main():
     # ---- 6. planar kinds: tilted plate, ring, rectangle and slit in a run --
     go.cuda_fuse_planar = True
     try:
-        planar, planar_calls = run_variants(planar_stack_scene, [61], "@planar61", seed=17)
+        planar, planar_calls = run_variants(planar_stack_scene, [61], "@planar61", seed=17, slots=True)
         stress_p = stress_run_call(planar_calls[0], "conic_run[nopol,store]@planar61,stress",
                                    spread=2.0, tilt=0.1, seed=18)
         del planar_calls
@@ -2993,6 +3140,9 @@ def main():
             for tag in ("tilted", "absorb:ring", "absorb:rect", "absorb:slit"):
                 assert conic_run.kind_launches.get(tag) == 1, conic_run.kind_launches
             launches[label + "@planar61"] = conic_run.launches
+            if store:
+                assert conic_run.slot_launches == 1, conic_run.slot_launches
+                launches[label.replace("]", ",slots]") + "@planar61"] = conic_run.slot_launches
             if label != "conic_run[nopol,store]":
                 del RTs
         RTs, _ = drive_trace(planar_stack_scene, True)
@@ -3412,6 +3562,7 @@ def main():
     rows["conic_run[nopol,store]@trace_replay"] = main_shapes["conic_run[nopol,store]"]
     rows["conic_run[pol,store]@trace_replay"] = main_shapes["conic_run[pol,store]"]
     rows["conic_run[nopol,store]@stack56_replay"] = stack_store
+    rows.update({k + "@stack56": v for k, v in stack_slots.items()})
     rows.update(gui_rows)
     rows["conic_run[nopol,store]@read_path"] = main_shapes["conic_run[nopol,store]"]
     rows.update(read_rows)

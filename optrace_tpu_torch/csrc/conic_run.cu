@@ -23,8 +23,19 @@
 // (an absorb step reads none); counts are reduced with
 // __ballot_sync/__popc per warp and one integer atomicAdd per warp, step and
 // non-zero counter (exact at any N); sections leave with streaming stores,
-// since the kernel never reads one back. The kernel is instantiated twice
-// over the step kinds: a run of flat and conic refractions alone (most runs
+// since the kernel never reads one back. They leave section by section: step
+// j of the run is row j of ys_p (L, N, 3), ys_w and ys_n (L, N) and ys_pol
+// (L, N, 3), one coalesced store a warp and word, which is the TPU kernel's
+// layout and also the columns of the trace's section-major buffers
+// (ops/cuda_run.py:SectionSlots, whose (N, nt, 3) is the transpose of a
+// contiguous (nt, N, 3)): the wrapper passes the run's first column, so the
+// trace needs no restacking. Laid out ray by ray instead ((N, nt, 3)
+// contiguous), a warp's 32 rays are a row of nt sections apart and every
+// store falls into 32 sectors written in part; staged in shared memory that
+// took 2.0 × this layout's time on the stack's run of 56 (PERF.md). With
+// ys_n the kernel also writes each step's medium n₂ (at an absorb step the
+// ambient row, which the step itself does not read). The kernel is
+// instantiated twice over the step kinds: a run of flat and conic refractions alone (most runs
 // of most lens systems) takes the instantiation without the asphere solve,
 // the tilted plane and the absorb masks, which needs fewer registers (40 to
 // 48 against 51 to 60) and is about 9 % faster at 56 steps.
@@ -32,11 +43,11 @@
 // Bound by the table of peaks: per ray the kernel must move 28 B in + 28 B
 // out of state (40 + 40 with pol), 4·M B of media (M: the rows of n_tab that
 // the run's steps name, not all the table holds) and, when sections are
-// stored, 16 B (28 B with pol) per step; a flat, conic or tilted step is on
-// the order of 150 f32 operations per ray, an asphere step about 1700 as it
-// is defined (42 evaluations of the sag, each a square root, a division and a
-// Horner polynomial, and 40 bracket updates; the kernel does about a third
-// of them, see trace_step.cuh), an absorb step about 60. At N = 10⁶, L = 56
+// stored, 16 B (28 B with pol) per step, 4 B more with n; a flat, conic or
+// tilted step is on the order of 150 f32 operations per ray, an asphere step
+// about 1700 as it is defined (42 evaluations of the sag, each a square root,
+// a division and a Horner polynomial, and 40 bracket updates; the kernel
+// does about a third of them, see trace_step.cuh), an absorb step about 60. At N = 10⁶, L = 56
 // conic steps with stored sections that is about 0.9 GB against about
 // 8 GFLOP, so on an H100 (3.35 TB/s, 67 TFLOP/s f32) the memory side is the
 // tighter bound; the no-store form moves under 0.1 GB and is bound by its
@@ -75,7 +86,7 @@ __global__ void __launch_bounds__(256) conic_run_kernel(
     float* __restrict__ w_out, float* __restrict__ pol_out,
     int* __restrict__ counts,
     float* __restrict__ ys_p, float* __restrict__ ys_w,
-    float* __restrict__ ys_pol)
+    float* __restrict__ ys_pol, float* __restrict__ ys_n)
 {
     // the step table: L Step structs, then the coefficient region
     extern __shared__ int table[];
@@ -154,6 +165,15 @@ __global__ void __launch_bounds__(256) conic_run_kernel(
                 __stcs(ys_pol + 3 * row + 1, r.qy);
                 __stcs(ys_pol + 3 * row + 2, r.qz);
             }
+            if (ys_n) {
+                // the medium after the step: the row the step read, or at an
+                // absorb step (and for a dead ray) read here
+                if (c.n2_row != last_row) {
+                    last_row = c.n2_row;
+                    last_n = __ldg(n_tab + (size_t)c.n2_row * N + i);
+                }
+                __stcs(ys_n + row, last_n);
+            }
         }
     }
 
@@ -170,12 +190,14 @@ __global__ void __launch_bounds__(256) conic_run_kernel(
 // `table_words` 32-bit words in all (at most 48 KB: static-limit shared
 // memory). `all_kinds` = 0 promises that every step is a refraction on a
 // flat disc or a conic and takes the smaller instantiation. `counts` (L, 4)
-// int32 must be zero on entry. Returns cudaGetLastError().
+// int32 must be zero on entry. With `store` the sections go to ys_p, ys_w,
+// ys_pol and, where ys_n is not null, ys_n, step j at row j. Returns
+// cudaGetLastError().
 extern "C" int conic_run_launch(
     const void* p_in, const void* s_in, const void* w_in, const void* pol_in,
     const void* n_tab, const void* table, int L, int table_words, long long N,
     void* p_out, void* s_out, void* w_out, void* pol_out, void* counts,
-    void* ys_p, void* ys_w, void* ys_pol,
+    void* ys_p, void* ys_w, void* ys_pol, void* ys_n,
     int with_pol, int store, int all_kinds, void* stream)
 {
     if (N <= 0 || L <= 0) return 0;
@@ -189,7 +211,7 @@ extern "C" int conic_run_launch(
         (const float*)pol_in, (const float*)n_tab, (const int*)table, L,          \
         table_words, N,                                                           \
         (float*)p_out, (float*)s_out, (float*)w_out, (float*)pol_out,             \
-        (int*)counts, (float*)ys_p, (float*)ys_w, (float*)ys_pol)
+        (int*)counts, (float*)ys_p, (float*)ys_w, (float*)ys_pol, (float*)ys_n)
 #define OT_LAUNCH_KINDS(POL, STORE)                                               \
     do { if (all_kinds) OT_LAUNCH(POL, STORE, true); else OT_LAUNCH(POL, STORE, false); } while (0)
     if (with_pol) { if (store) OT_LAUNCH_KINDS(true, true); else OT_LAUNCH_KINDS(true, false); }

@@ -27,6 +27,7 @@ versions raise.
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -76,6 +77,64 @@ def _check_kinds(steps) -> None:
                 + " and absorbers on " + ", ".join(ABSORB_KINDS))
         if kind == "asphere" and len(c.get("coeff", ())) < 1:
             raise ValueError("an asphere step needs at least one polynomial coefficient")
+
+
+class SectionSlots(NamedTuple):
+    """Where a run writes its sections: the trace's buffers of all ``nt``
+    sections, positions ``p`` (N, nt, 3), weights ``w`` and media ``n``
+    (N, nt) and polarizations ``pol`` (N, nt, 3, or None without
+    polarization), and the run's first column ``col0``. Step j of the run
+    fills column ``col0 + j`` of every buffer; no other column is touched.
+    The buffers are stored section by section (:func:`section_buffer`), so
+    that a run's columns are the (L, N, 3) / (L, N) rows that the kernel
+    writes."""
+    p: torch.Tensor
+    w: torch.Tensor
+    n: torch.Tensor
+    pol: Optional[torch.Tensor]
+    col0: int
+
+    @property
+    def nt(self) -> int:
+        return self.p.shape[1]
+
+
+def section_buffer(N, nt, *tail, dtype, device):
+    """An uninitialised (N, nt, *tail) buffer stored section by section: the
+    transpose of a contiguous (nt, N, *tail) tensor, whose column k is one
+    contiguous block."""
+    return torch.empty((nt, N, *tail), dtype=dtype, device=device).transpose(0, 1)
+
+
+def _check_out(out, p, L, with_pol, store) -> None:
+    """Raise ValueError unless ``out`` can take the L stored sections of a
+    run of the rays ``p``: buffers of ``p``'s dtype on its device that no
+    gradient is recorded for, of shapes (N, nt, 3) and (N, nt), each stored
+    section by section (:func:`section_buffer`), a polarization buffer
+    exactly when the run carries polarization, and 0 ≤ col0 ≤ nt − L."""
+    if not store:
+        raise ValueError("out takes the stored sections of a run: it needs store=True")
+    if not isinstance(out, SectionSlots):
+        raise ValueError(f"out must be a SectionSlots, got {type(out).__name__}")
+    N = p.shape[0]
+    nt = out.p.shape[1] if isinstance(out.p, torch.Tensor) and out.p.dim() == 3 else -1
+    bufs = [("p", out.p, (N, nt, 3)), ("w", out.w, (N, nt)), ("n", out.n, (N, nt))]
+    if with_pol:
+        bufs.append(("pol", out.pol, (N, nt, 3)))
+    elif out.pol is not None:
+        raise ValueError("out.pol must be None for a run without polarization")
+    for name, t, shape in bufs:
+        if not isinstance(t, torch.Tensor) or t.device != p.device or t.dtype != p.dtype:
+            raise ValueError(f"out.{name} must be a {p.dtype} tensor on {p.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"out.{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.transpose(0, 1).is_contiguous():
+            raise ValueError(f"out.{name} must be stored section by section: "
+                             "the transpose of a contiguous (nt, N, ...) tensor")
+        if t.requires_grad:
+            raise ValueError(f"out.{name} requires grad: the run writes into it in place")
+    if not (isinstance(out.col0, int) and 0 <= out.col0 and out.col0 + L <= nt):
+        raise ValueError(f"a run of {L} steps from column {out.col0} does not fit {nt} columns")
 
 
 # ----------------------------------------------------------------------
@@ -445,19 +504,30 @@ def _outline_block(px, py, pz, sx, sy, sz, w, pol, ppx, ppy, ppz, c, miss, n_tir
     return (px, py, pz, sx, sy, sz, w), pol, (miss, n_tir, outl, ill)
 
 
-def conic_run_reference(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
+def conic_run_reference(p, s, w, n_tab, med_idx, steps, pol=None, store=True, out=None):
     """Plain PyTorch version of :func:`conic_run`: same arguments, same
-    results, any device, f32 or f64, differentiable."""
+    results, any device, f32 or f64, differentiable (but not into ``out``)."""
     _check_kinds(steps)
+    if out is not None:
+        _check_out(out, p, len(steps), pol is not None, store)
     st = (p[:, 0], p[:, 1], p[:, 2], s[:, 0], s[:, 1], s[:, 2], w)
     q = None if pol is None else (pol[:, 0], pol[:, 1], pol[:, 2])
     counts, ys_p, ys_w, ys_pol = [], [], [], []
-    for c, (r1, r2) in zip(steps, med_idx):
+    for j, (c, (r1, r2)) in enumerate(zip(steps, med_idx)):
         st, q, flags = _one_step(*st, n_tab[r1], n_tab[r2], c, pol=q)
         counts.append(torch.stack([torch.count_nonzero(f) for f in flags]))
         if store:
             sec = torch.stack([st[0] + c["ox"], st[1] + c["oy"], st[2] + c["oz"]], dim=-1)
-            ys_p.append(sec + c["rpos"] if "rpos" in c else sec)
+            sec = sec + c["rpos"] if "rpos" in c else sec
+            if out is not None:
+                k = out.col0 + j
+                out.p[:, k].copy_(sec)
+                out.w[:, k].copy_(st[6])
+                out.n[:, k].copy_(n_tab[r2])
+                if q is not None:
+                    out.pol[:, k].copy_(torch.stack(q, dim=-1))
+                continue
+            ys_p.append(sec)
             ys_w.append(st[6])
             if q is not None:
                 ys_pol.append(torch.stack(q, dim=-1))
@@ -465,7 +535,7 @@ def conic_run_reference(p, s, w, n_tab, med_idx, steps, pol=None, store=True):
     s2 = torch.stack(st[3:6], dim=-1)
     pol2 = None if q is None else torch.stack(q, dim=-1)
     counts = torch.stack(counts).to(torch.int32)
-    if not store:
+    if not store or out is not None:
         return (p2, s2, st[6], pol2), (counts, None, None, None)
     return (p2, s2, st[6], pol2), (counts, torch.stack(ys_p), torch.stack(ys_w),
                                    torch.stack(ys_pol) if q is not None else None)
@@ -575,7 +645,7 @@ def _lib():
     if not getattr(lib, "_ot_ready", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.conic_run_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ctypes.c_longlong,
-                                         vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+                                         vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.conic_run_launch.restype = ci
         lib.conic_run_step_bytes.restype = ci
         if lib.conic_run_step_bytes() != 4 * STEP_WORDS:
@@ -596,7 +666,7 @@ def _check(name, t, shape, device):
                          "use conic_run_reference")
 
 
-def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None):
+def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None, out=None):
     """Run L consecutive trace steps for every ray.
 
     On CUDA tensors this launches the kernel (or raises); tensors on the
@@ -615,18 +685,25 @@ def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None):
     :param plan: the :class:`PreparedRun` of ``steps`` and ``med_idx``, for
         a caller that launches the same run again and again; without it the
         run is prepared at every call
+    :param out: optional :class:`SectionSlots`: the stored sections go
+        straight into their columns of the trace's buffers, with the medium
+        n₂ of each step (``n_tab[med_idx[j][1]]``) in ``out.n``; the buffers
+        are checked before the launch (ValueError)
     :return: (p', s', w', pol'|None), (counts (L, 4) int32 rows of
         [miss, tir, outline, ill], ys_p (L, N, 3)|None, ys_w (L, N)|None,
-        ys_pol (L, N, 3)|None)
+        ys_pol (L, N, 3)|None); the ys are None when the sections went
+        into ``out``
     """
     if p.device.type == "cpu":
-        return conic_run_reference(p, s, w, n_tab, med_idx, steps, pol=pol, store=store)
+        return conic_run_reference(p, s, w, n_tab, med_idx, steps, pol=pol, store=store, out=out)
     if p.device.type != "cuda":
         raise ValueError(f"conic_run runs on CUDA or CPU tensors, not on {p.device}")
 
     if plan is None:
         plan = PreparedRun(steps, med_idx)
     L, N, dev = plan.L, p.shape[0], p.device
+    if out is not None:
+        _check_out(out, p, L, pol is not None, store)
     _check("p", p, (N, 3), dev)
     _check("s", s, (N, 3), dev)
     _check("w", w, (N,), dev)
@@ -644,8 +721,12 @@ def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None):
         p2, s2, w2 = torch.empty_like(p), torch.empty_like(s), torch.empty_like(w)
         pol2 = torch.empty_like(pol) if pol is not None else None
         counts = torch.zeros((L, 4), dtype=torch.int32, device=dev)
-        ys_p = ys_w = ys_pol = None
-        if store:
+        ys_p = ys_w = ys_pol = ys_n = None
+        if out is not None:
+            # the run's columns: (L, N, ...) rows of the section-major buffers
+            ys_p, ys_w, ys_n, ys_pol = (None if t is None else t.transpose(0, 1)[out.col0:out.col0 + L]
+                                        for t in (out.p, out.w, out.n, out.pol))
+        elif store:
             ys_p = torch.empty((L, N, 3), dtype=torch.float32, device=dev)
             ys_w = torch.empty((L, N), dtype=torch.float32, device=dev)
             if pol is not None:
@@ -657,7 +738,7 @@ def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None):
         rc = lib.conic_run_launch(
             ptr(p), ptr(s), ptr(w), ptr(pol), ptr(n_tab), ptr(table), L, table.numel(), N,
             ptr(p2), ptr(s2), ptr(w2), ptr(pol2), ptr(counts),
-            ptr(ys_p), ptr(ys_w), ptr(ys_pol),
+            ptr(ys_p), ptr(ys_w), ptr(ys_pol), ptr(ys_n),
             int(pol is not None), int(store), int(plan.all_kinds),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -665,8 +746,12 @@ def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None):
     conic_run.launches += 1
     variant = (pol is not None, bool(store))
     conic_run.variant_launches[variant] = conic_run.variant_launches.get(variant, 0) + 1
+    if out is not None:
+        conic_run.slot_launches += 1
     for tag in plan.tags:
         conic_run.kind_launches[tag] = conic_run.kind_launches.get(tag, 0) + 1
+    if out is not None:
+        return (p2, s2, w2, pol2), (counts, None, None, None)
     return (p2, s2, w2, pol2), (counts, ys_p, ys_w, ys_pol)
 
 
@@ -680,10 +765,12 @@ def step_tag(c) -> str:
 
 conic_run.launches = 0              # kernel launches since the last reset
 conic_run.variant_launches = {}     # the same, by (with_pol, store)
+conic_run.slot_launches = 0         # the same, of those that wrote into SectionSlots
 conic_run.kind_launches = {}        # launches that held a step of each step_tag
 
 
 def reset_launch_counts() -> None:
     conic_run.launches = 0
     conic_run.variant_launches = {}
+    conic_run.slot_launches = 0
     conic_run.kind_launches = {}

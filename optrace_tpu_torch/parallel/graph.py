@@ -64,7 +64,7 @@ import torch.autograd.forward_ad as fwAD
 from ..ops import cuda_binning, cuda_run, cuda_trace
 from ..utils.global_options import global_options
 
-_COUNTED = ("launches", "variant_launches", "kind_launches")
+_COUNTED = ("launches", "variant_launches", "slot_launches", "kind_launches")
 
 
 def _wrappers():

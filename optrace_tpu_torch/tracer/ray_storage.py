@@ -155,7 +155,10 @@ class RayStorage(BaseClass):
             if sec is not None and not isinstance(sec, (int, np.integer, slice)):
                 sec = torch.as_tensor(np.asarray(sec), device=t.device)
             v = t[rows] if sec is None else t[rows, sec]
-            a = v.to(getattr(torch, np.dtype(dtype).name)).cpu().numpy()
+            # in C order, whatever the order of the trace's sections (``to``
+            # keeps the order where it changes no type)
+            v = v.to(getattr(torch, np.dtype(dtype).name), memory_format=torch.contiguous_format)
+            a = v.contiguous().cpu().numpy()
         return _read_only(a) if basic else a
 
     def _shape(self, name):

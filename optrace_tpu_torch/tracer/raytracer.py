@@ -52,8 +52,8 @@ from ..utils.warnings import warning
 
 TRACE_CACHE_SIZE = 32       # entries of the trace cache, as in the JAX package
 # A trace entry's graph holds a private pool of about the eager trace's peak
-# (its outputs and the trace's temporaries: on the H100 0.80 GB for the double
-# Gauss at 10⁶ rays without polarization, 1.20 GB with it, 2.27 GB for the
+# (its outputs and the trace's temporaries: on the H100 0.55 GB for the double
+# Gauss at 10⁶ rays without polarization, 0.80 GB with it, 1.37 GB for the
 # 57-surface stack; PERF.md §5), so only the entries of the last few keys
 # traced keep one: the least recently used loses its graph first.
 MAX_GRAPHED_TRACES = 2

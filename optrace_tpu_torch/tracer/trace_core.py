@@ -35,7 +35,8 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..ops import geom
-from ..ops.cuda_run import conic_run, conic_run_reference, PreparedRun, ABSORB_KINDS
+from ..ops.cuda_run import (conic_run, conic_run_reference, PreparedRun, SectionSlots, section_buffer,
+                            ABSORB_KINDS)
 from ..ops.vector import rdot, cross, normalize_safe
 from .scene_compile import SurfaceFns, host_values
 
@@ -402,6 +403,12 @@ def _run_needs_plain(steps, idxs, p, s, w, pols, n_tab, no_pol) -> bool:
     from ..utils.global_options import global_options
     if not global_options.cuda_trace or p.dtype != torch.float32:
         return True
+    return _run_tracks_grad(steps, idxs, p, s, w, pols, n_tab, no_pol)
+
+
+def _run_tracks_grad(steps, idxs, p, s, w, pols, n_tab, no_pol) -> bool:
+    """Whether a derivative flows through a run: through an operand or a
+    surface parameter of one of its steps."""
     operands = [p, s, w, n_tab] + ([] if no_pol else [pols])
     if any(t is not None and _tracks_grad(t) for t in operands):
         return True
@@ -541,24 +548,117 @@ class RunPlans:
         return len(self._plans)
 
 
+class _Sections:
+    """The stored sections of one bundle, section k at column k.
+
+    They are written in place: the buffers p (N, nt, 3), w and n (N, nt)
+    and pol (N, nt, 3; None under no_pol) are made once, stored section by
+    section (``section_buffer``: column k is one contiguous block); section
+    0 and every unrolled step's section are copied into their columns, and
+    a run's sections go straight there from the run (:meth:`slots`). From
+    the first section or run that a derivative flows through on, the
+    sections are kept as tensors of their own and stacked at the end
+    (:meth:`to_lists`; the columns written until then become the first of
+    them), so that autograd and forward mode see the operations that they
+    always saw."""
+
+    def __init__(self, nt, p, w, pols, n, no_pol):
+        """Section 0 is ``p, w, pols, n`` (the source's rays), whose dtypes
+        the buffers take."""
+        def buf(t, *tail):
+            return section_buffer(t.shape[0], nt, *tail, dtype=t.dtype, device=t.device)
+        self.no_pol, self.in_place, self.filled = no_pol, True, 0
+        self.p, self.w, self.n = buf(p, 3), buf(w), buf(n)
+        self.pol = None if no_pol else buf(pols, 3)
+        self._written_p = None          # the column that absolute() wrote last
+        self.put(0, p, w, pols, n)
+
+    def to_lists(self):
+        """Keep every later section as a tensor of its own: the columns
+        written so far become the first entries of the lists."""
+        if not self.in_place:
+            return
+        cols = range(self.filled)
+        self.p, self.w, self.n = ([t[:, k] for k in cols] for t in (self.p, self.w, self.n))
+        self.pol = [None] * self.filled if self.no_pol else [self.pol[:, k] for k in cols]
+        self.in_place = False
+
+    def absolute(self, k, p, off):
+        """``p + off``, the absolute positions of section k, written into
+        its column where the sections are written in place."""
+        if self.in_place and not (_tracks_grad(p) or _tracks_grad(off)):
+            self._written_p = torch.add(p, off, out=self.p[:, k])
+            return self._written_p
+        return p + off
+
+    def put(self, k, p, w, pol, n):
+        """Section k (its positions as :meth:`absolute` gave them)."""
+        if self.in_place and any(t is not None and _tracks_grad(t) for t in (p, w, pol, n)):
+            self.to_lists()
+        if not self.in_place:
+            self.p.append(p)
+            self.w.append(w)
+            self.pol.append(pol)
+            self.n.append(n)
+            return
+        if p is not self._written_p:
+            self.p[:, k].copy_(p)
+        self.w[:, k].copy_(w)
+        self.n[:, k].copy_(n)
+        if not self.no_pol:
+            self.pol[:, k].copy_(pol)
+        self.filled = k + 1
+
+    def slots(self, col0, L):
+        """Where a run of ``L`` steps whose first section is column
+        ``col0`` writes its sections, or None where they are stacked."""
+        if not self.in_place:
+            return None
+        self.filled = col0 + L
+        return SectionSlots(self.p, self.w, self.n, self.pol, col0)
+
+    def extend(self, ys_p, ys_w, ys_pol, n_rows, pols):
+        """A run's (L, N, ...) sections, where they are stacked."""
+        L = ys_p.shape[0]
+        self.p.extend(ys_p[i] for i in range(L))
+        self.w.extend(ys_w[i] for i in range(L))
+        # pol untouched under no_pol: reuse the source tensor
+        self.pol.extend([pols] * L if self.no_pol else (ys_pol[i] for i in range(L)))
+        self.n.extend(n_rows)
+
+    def result(self) -> dict:
+        if self.in_place:
+            return dict(p=self.p, w=self.w, pol=self.pol, n=self.n)
+        return {
+            "p": torch.stack(self.p, dim=1),
+            "w": torch.stack(self.w, dim=1),
+            # under no_pol the polarization is never touched: skip the
+            # (N, nt, 3) NaN stack entirely (RayStorage broadcasts host-side)
+            "pol": None if self.no_pol else torch.stack(self.pol, dim=1),
+            "n": torch.stack(self.n, dim=1),
+        }
+
+
 def _conic_run_dispatch(steps, idxs, chain, outline64, n_tab, pairs,
-                        p, s, w, pols, no_pol, store_sections, plans, residuals):
+                        p, s, w, pols, no_pol, store_sections, plans, residuals, out=None):
     """Call one run (kernel or plain loop) with its per-step constants and
     media row pairs, and shape its outputs for :func:`trace_bundle`. The
     kernel's run comes prepared from ``plans``; the gradient and f64 path
-    builds its constant dicts anew, since they may hold tensors."""
+    builds its constant dicts anew, since they may hold tensors. ``out``:
+    the :class:`SectionSlots` that the run writes its sections into (its
+    returned sections are then None)."""
     med_idx = [pairs[i] for i in idxs]
     pol_in = None if no_pol else pols
     if _run_needs_plain(steps, idxs, p, s, w, pols, n_tab, no_pol):
         consts = _run_steps(steps, idxs, chain, outline64)
         consts = _run_differentiable_steps(steps, idxs, chain, consts, residuals)
         (p2, s2, w2, pols2), (counts, ys_p, ys_w, ys_pol) = conic_run_reference(
-            p, s, w, n_tab, med_idx, consts, pol=pol_in, store=store_sections)
+            p, s, w, n_tab, med_idx, consts, pol=pol_in, store=store_sections, out=out)
     else:
         plan = plans.get(steps, idxs, chain, outline64, med_idx)
         (p2, s2, w2, pols2), (counts, ys_p, ys_w, ys_pol) = conic_run(
             p, s, w, n_tab, plan.med_idx, plan.steps, pol=pol_in, store=store_sections,
-            plan=plan)
+            plan=plan, out=out)
     if no_pol:
         pols2 = pols
 
@@ -603,10 +703,13 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
     :param plans: the :class:`RunPlans` of ``steps``, for a caller that
         traces bundle after bundle through the same steps; without them the
         runs are prepared anew at every call
-    :return: dict with stacked per-section arrays p (N, nt, 3), w (N, nt),
+    :return: dict with the per-section arrays p (N, nt, 3), w (N, nt),
              pol (N, nt, 3) or None, n (N, nt) (if store_sections) and the
              INFOS counter matrix (N_INFOS, nt) — nt = len(steps) + 1
-             sections — plus "sinks": final sink carries.
+             sections — plus "sinks": final sink carries. The sections
+             are written in place into those arrays (a run's by the run
+             itself) until a derivative flows, and stacked from there on
+             (:class:`_Sections`).
     """
     for st in steps:
         if st.action not in ("refract", "ideal", "filter", "absorb"):
@@ -617,10 +720,10 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
     np_dtype = np.float64 if p.dtype == torch.float64 else np.float32
-    sections_p = [p]
-    sections_w = [w]
-    sections_pol = [pols]
-    sections_n = [n0_fn(wl)]
+    n_amb_last = n0_fn(wl)
+    sections = None
+    if store_sections:
+        sections = _Sections(len(steps) + 1, p, w, pols, n_amb_last, no_pol)
     infos = [torch.zeros((N_INFOS,), dtype=torch.int32, device=dev)]
     sink_list = _normalize_sinks(sinks)
     carries = [init for _, init, _ in sink_list]
@@ -642,23 +745,22 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         media, pairs = _media_rows(steps, run_idxs_all, _ambient_chain(steps, n0_fn))
         n_tab = torch.stack([m(wl) for m in media])
 
-    n_amb_last = sections_n[-1]
     for run_kind, run_idxs in runs:
         if run_kind == "run":
+            # section k + 1 follows step k
+            slots = None
+            if store_sections:
+                if _run_tracks_grad(steps, run_idxs, p, s, w, pols, n_tab, no_pol):
+                    sections.to_lists()
+                slots = sections.slots(run_idxs[0] + 1, len(run_idxs))
             (p, s, w, pols, run_infos, run_p, run_w,
              run_pol) = _conic_run_dispatch(
                 steps, run_idxs, chain, outline64, n_tab, pairs,
-                p, s, w, pols, no_pol, store_sections, plans, residuals)
+                p, s, w, pols, no_pol, store_sections, plans, residuals, out=slots)
             L = len(run_idxs)
             infos.extend(run_infos[i] for i in range(L))
-            if store_sections:
-                sections_p.extend(run_p[i] for i in range(L))
-                sections_w.extend(run_w[i] for i in range(L))
-                if no_pol:      # pol untouched: reuse the source tensor
-                    sections_pol.extend([pols] * L)
-                else:
-                    sections_pol.extend(run_pol[i] for i in range(L))
-                sections_n.extend(n_tab[pairs[i][1]] for i in run_idxs)
+            if store_sections and slots is None:
+                sections.extend(run_p, run_w, run_pol, [n_tab[pairs[i][1]] for i in run_idxs], pols)
             n_amb_last = n_tab[pairs[run_idxs[-1]][1]]
             continue
 
@@ -724,7 +826,7 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
             off = origin_t
             if res is not None:
                 off = off + res
-            p_abs = p + off
+            p_abs = sections.absolute(idx + 1, p, off) if store_sections else p + off
             if sink_list:
                 p_prev_abs = p_prev + off
                 carries = [fn(idx, p_prev_abs, p_abs, w_prev, c)
@@ -733,10 +835,7 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         n_amb_last = n_after
         infos.append(info)
         if store_sections:
-            sections_p.append(p_abs)
-            sections_w.append(w)
-            sections_pol.append(pols)
-            sections_n.append(n_after)
+            sections.put(idx + 1, p_abs, w, pols, n_after)
 
     out = {
         "wl": wl,
@@ -745,12 +844,5 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         "state": (p, s, pols, w),
     }
     if store_sections:
-        out |= {
-            "p": torch.stack(sections_p, dim=1),
-            "w": torch.stack(sections_w, dim=1),
-            # under no_pol the polarization is never touched: skip the
-            # (N, nt, 3) NaN stack entirely (RayStorage broadcasts host-side)
-            "pol": None if no_pol else torch.stack(sections_pol, dim=1),
-            "n": torch.stack(sections_n, dim=1),
-        }
+        out |= sections.result()
     return out

@@ -89,7 +89,7 @@ def graphed(monkeypatch):
         finally:
             _Graph.step = None
 
-    def counted(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None):
+    def counted(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None, out=None):
         if not _Graph.replaying:
             f = cuda_run.conic_run
             f.launches += 1
@@ -97,7 +97,7 @@ def graphed(monkeypatch):
             f.variant_launches[v] = f.variant_launches.get(v, 0) + 1
             if _Graph.capturing and _Graph.fail:
                 raise RuntimeError("operation not permitted when stream is capturing")
-        return real_run(p, s, w, n_tab, med_idx, steps, pol=pol, store=store, plan=plan)
+        return real_run(p, s, w, n_tab, med_idx, steps, pol=pol, store=store, plan=plan, out=out)
 
     monkeypatch.setattr(CapturedStep, "__call__", call)
     monkeypatch.setattr(trace_core, "conic_run", counted)

@@ -49,14 +49,15 @@ the fill, the wait for the INFOS counters); ``detector_image`` with the
 card synchronized at every stage (the change check, the f64 sections, the
 hit search, kernel 2, the f64 image and its copy to the host); ``get`` in
 three modes at 945² and 315² the same way (block mean, colour, copies, the
-image object); the first full read of ``RT.rays`` taken apart
+image object); selected reads of the sections on the card
+(``rays_by_mask_times``); the first full read of ``RT.rays`` taken apart
 (``first_read_split``: copies, page faults, pinned memory, the f64
 conversions, ``s0``); and the plain host clock of each call beside. With
 ``--root`` it splits an earlier tree the same way; a function that the
 tree does not have is listed under ``missing``. For a replayed ``trace``
 it also splits the device time by kind (``trace_device_split``: kernel 1,
-source sampling, media, sections, INFOS counters, the rest, each with its
-launches).
+source sampling, media, sections, INFOS counters, the rest and the replay's
+copies of its outputs, each with its launches).
 
 ``--design`` profiles the design render of chip_smoke.py's design phase
 (``tracer/diff.py:make_parameterized_render`` of the double Gauss, 189²
@@ -423,6 +424,34 @@ def first_read_split(rays, reps=2):
     return res
 
 
+def rays_by_mask_times(rays, reps):
+    """Seconds of selected reads of a stored trace that still lies on the
+    card, as the GUI and the analysis make them (``rays_by_mask``): every
+    section of about 2000 rays spread over the bundle (the rays a GUI
+    draws), and one section of every tenth ray. Host clock with the card
+    synchronized, ``reps`` runs each."""
+    import numpy as np
+    import torch
+
+    N, nt = rays.N, rays.Nt
+    few, tenth = np.zeros(N, dtype=bool), np.zeros(N, dtype=bool)
+    few[::max(N // 2000, 1)] = True
+    tenth[::10] = True
+    last = np.full(int(tenth.sum()), nt - 2)
+
+    def timed(fn):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+    return dict(all_sections_of_2000_rays=timed(lambda: rays.rays_by_mask(few)),
+                one_section_of_every_tenth_ray=timed(lambda: rays.rays_by_mask(tenth, last)))
+
+
 def split_targets():
     """The stages of the stored trace's read path, as ``StageTimer``
     targets: ``trace`` (run as it is), ``detector_image`` and ``get`` (run
@@ -474,7 +503,7 @@ def split_call(fn, targets=(), sync=False):
     return dict(wall_s=wall, **st.split(wall)), out
 
 
-TRACE_KINDS = ("kernel_1", "source_sampling", "media", "sections", "infos", "rest")
+TRACE_KINDS = ("kernel_1", "source_sampling", "media", "sections", "infos", "rest", "outputs")
 MIN_MATCHED_SHARE = 0.98        # of the eager run's kernels, matched in a replay
 
 
@@ -491,9 +520,13 @@ def trace_kind(op, prev_kind=None) -> str:
     counters, the counters' zeros and sums in ``trace_bundle``), the steps
     outside the runs (labelled, "rest") and, directly in ``trace_bundle``,
     the media table (the stack right after the media), the sections (the
-    absolute positions, the stacks of the per-section tensors, the INFOS
-    stack among them) and the rest (frame shifts, absorption, HURB draws).
-    ``prev_kind`` is the kind of the work launched before."""
+    absolute positions, the copies of section 0 and of the unrolled steps
+    into their columns, where a tree stacks them the stacks of the
+    per-section tensors, the INFOS stack among them) and the rest (frame
+    shifts, absorption, HURB draws). Kernel 1, which writes its runs'
+    sections, goes by its name ("kernel_1"), and a replay's copies of its
+    outputs are "outputs" (:func:`trace_device_split`). ``prev_kind`` is
+    the kind of the work launched before."""
     ops, label, e = set(), None, op
     while e is not None:
         if e.name.startswith("aten::"):
@@ -511,7 +544,7 @@ def trace_kind(op, prev_kind=None) -> str:
         return "infos"
     if ops & {"aten::stack", "aten::cat"}:
         return "media" if prev_kind == "media" else "sections"
-    if "aten::add" in ops:                                  # p_abs = p + off
+    if ops & {"aten::add", "aten::copy_"}:                 # p_abs = p + off, the columns' copies
         return "sections"
     return "rest"
 
@@ -575,9 +608,11 @@ def trace_device_split(RT, n, reps=3):
     ran them (the longest matching blocks of their names), each of which the
     profiler ties to the operator that launched it (the runtime call with
     the kernel's correlation id, and the operator around that call;
-    :func:`trace_kind`). Copies (the replay's outputs, the INFOS counters to
-    the host) are left out; a replay's kernel that matches none (the
-    graph's generator state) counts as "rest". The eager run's own split
+    :func:`trace_kind`). The replay's device-to-device copies outside the
+    graph (``CapturedStep`` returns copies of the graph's outputs) are
+    "outputs" and take no part in the matching; copies to and from the host
+    (the INFOS counters) are left out; a replay's kernel that matches none
+    (the graph's generator state) counts as "rest". The eager run's own split
     stands beside it; where fewer than :data:`MIN_MATCHED_SHARE` of the
     eager kernels match, only the eager split is given. The median over
     ``reps`` replays of each kind's time."""
@@ -595,9 +630,15 @@ def trace_device_split(RT, n, reps=3):
     assert RT._trace_entry(n).run.graph is not None, "the trace was not captured"
 
     def device_events(prof):
-        # kernels and memsets; not the labels' ranges on the device's timeline
+        # kernels, memsets and device-to-device copies; not the copies to or
+        # from the host, nor the labels' ranges on the device's timeline
         return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                       and not e.name.startswith(("Memcpy", "trace:"))), key=lambda e: e.time_range.start)
+                       and (e.name.startswith("Memcpy DtoD") or not e.name.startswith(("Memcpy", "trace:")))),
+                      key=lambda e: e.time_range.start)
+
+    def runtime_calls(prof):
+        # the host's runtime call that put each device event on the card, by correlation id
+        return {e.id: e for e in prof.events() if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
 
     def split(rows):
         out = {k: dict(ms=0.0, launches=0) for k in TRACE_KINDS}
@@ -617,7 +658,7 @@ def trace_device_split(RT, n, reps=3):
             torch.cuda.synchronize()
     finally:
         restore()
-    launch = {e.id: e for e in prof.events() if e.device_type == DeviceType.CPU and e.name.startswith("cuda")}
+    launch = runtime_calls(prof)
     eager, kind = [], None
     for d in device_events(prof):
         op = launch[d.id].cpu_parent if d.id in launch else None
@@ -631,7 +672,10 @@ def trace_device_split(RT, n, reps=3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             RT.trace(n)
             torch.cuda.synchronize()
-        dev = device_events(prof)
+        calls, dev, outputs = runtime_calls(prof), [], []
+        for d in device_events(prof):
+            copy = d.name.startswith("Memcpy DtoD") and d.id in calls and "GraphLaunch" not in calls[d.id].name
+            (outputs if copy else dev).append(d)
         got, want = [_kernel_name(d.name) for d in dev], [name for name, _, _ in eager]
         kinds = ["rest"] * len(dev)         # a replay's kernel that no eager kernel matches
         blocks = difflib.SequenceMatcher(None, got, want, autojunk=False).get_matching_blocks()
@@ -642,7 +686,8 @@ def trace_device_split(RT, n, reps=3):
         if matched < MIN_MATCHED_SHARE * len(want):
             res.update(replay_kernels=len(dev), replay_matched_to_eager=False, matched_kernels=matched)
             return res
-        replays.append(split([(k, d.time_range.elapsed_us()) for k, d in zip(kinds, dev)]))
+        replays.append(split([(k, d.time_range.elapsed_us()) for k, d in zip(kinds, dev)]
+                             + [("outputs", d.time_range.elapsed_us()) for d in outputs]))
     res.update(replay_matched_to_eager=True, replay_kernels=len(dev), matched_kernels=matched)
     res["replay"] = {k: dict(ms=statistics.median(r[k]["ms"] for r in replays),
                              launches=replays[0][k]["launches"]) for k in TRACE_KINDS}
@@ -684,6 +729,8 @@ def trace_times(args, smi):
         row["trace_hit_split"] = _median_split([split_call(lambda: RT.trace(args.rays), trace_targets)[0]
                                                 for _ in range(args.batches)])
         RT.trace(args.rays)
+        row["rays_by_mask_s"] = rays_by_mask_times(RT.rays, args.batches)
+        assert not RT.rays._host, "a selected read made a host array"
         row["first_read_split"] = first_read_split(RT.rays)
         if RT.detectors:
             RT.trace(args.rays)
