@@ -48,7 +48,11 @@ drives ``render_huge(mesh=...)`` over an NCCL process group of one rank
 bit), drives the
 ``TraceGUI``'s actions on the double Gauss at 10⁶ rays (against the
 raytracer called directly; matplotlib under Agg where it is installed, else
-a stand-in that draws nothing), and checks that every path went through its
+a stand-in that draws nothing), runs ``main()`` of every example script of
+examples_torch/ at the example's own ray counts (phase ``examples``: seconds,
+rays, launches and peak memory of each, its results held to its
+invariants, kernel 1's calls and a fused batch of the many-rays render held
+against their plain versions), and checks that every path went through its
 kernels (launch counters). Every
 phase prints one JSON line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -714,6 +718,50 @@ class BinRecorder:
 
     def __exit__(self, *exc):
         self.module.bin_xyzw_cuda = self.real
+
+
+class RayCounter:
+    """Counts the rays traced while the ``with`` block runs (``rays``), and
+    the traces that traced them (``traces``): the sections each stored trace
+    hands to its storage (``RayStorage.fill``), each call of a fused render
+    step with its batch (a graph's replay traces the batch it was captured
+    for), and each call of a design render with its source rays
+    (``diff.trace_bundle``)."""
+
+    def __enter__(self):
+        from optrace_tpu_torch.parallel import render
+        from optrace_tpu_torch.tracer import diff
+        from optrace_tpu_torch.tracer.ray_storage import RayStorage
+        self.rays = self.traces = 0
+        self.patched = [(RayStorage, "fill"), (render, "make_fused_render_multi"),
+                        (diff, "trace_bundle")]
+        self.reals = [getattr(owner, attr) for owner, attr in self.patched]
+        fill, make_render, trace_bundle = self.reals
+
+        def counted_fill(storage, p, *args, **kw):
+            self.rays, self.traces = self.rays + int(p.shape[0]), self.traces + 1
+            return fill(storage, p, *args, **kw)
+
+        def counted_make_render(RT, N_batch, *args, **kw):
+            step, exts = make_render(RT, N_batch, *args, **kw)
+
+            def counted_step(gen):
+                self.rays, self.traces = self.rays + int(N_batch), self.traces + 1
+                return step(gen)
+            return counted_step, exts
+
+        def counted_trace_bundle(steps, n0_fn, outline, p, *args, **kw):
+            self.rays, self.traces = self.rays + int(p.shape[0]), self.traces + 1
+            return trace_bundle(steps, n0_fn, outline, p, *args, **kw)
+
+        for (owner, attr), f in zip(self.patched, (counted_fill, counted_make_render,
+                                                   counted_trace_bundle)):
+            setattr(owner, attr, f)
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, attr), real in zip(self.patched, self.reals):
+            setattr(owner, attr, real)
 
 
 def check_conic_step():
@@ -2102,6 +2150,160 @@ def gui_phase(ot, smi, n=N_RAYS, n_command=GUI_COMMAND_RAYS):
         undo()
     return ({"conic_run[pol,store]@gui": own["conic_run"], "bin_xyzw@gui": own["bin_xyzw"]},
             {"bin_xyzw@gui": bin_gui})
+
+
+# ----------------------------------------------------------------------
+# the example scripts of examples_torch/, each at its own ray counts
+
+# the examples whose scenes hold a run of at least four refractions (kernel
+# 1), and those that make no detector image (no kernel 2); the CPU tests
+# hold both lists against the calls of the kernels' wrappers
+EXAMPLES_KERNEL_1 = ("achromat", "double_gauss")
+EXAMPLES_WITHOUT_KERNEL_2 = ("astigmatism", "brewster_polarizer", "gui_automation",
+                             "lens_optimization", "psf_imaging", "refraction_index_presets",
+                             "spectrum_presets")
+EXAMPLES_BIN_ROW = "image_render_many_rays"     # kernel 2's row: its last fused batch
+
+
+def example_names():
+    """The scripts of examples_torch/, by name."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return sorted(f[:-3] for f in os.listdir(os.path.join(here, "examples_torch"))
+                  if f.endswith(".py") and f not in ("__init__.py", "common.py"))
+
+
+def json_numbers(value):
+    """The numbers, strings and flags of an example's results, in their
+    lists and dicts; images, arrays and objects are left out (None)."""
+    import numpy as np
+    if value is None or isinstance(value, (bool, str)):
+        return value
+    if isinstance(value, (int, np.integer)):
+        return int(value)
+    if isinstance(value, (float, np.floating)):
+        return float(value)
+    if isinstance(value, dict):
+        kept = {str(k): json_numbers(v) for k, v in value.items()}
+        return {k: v for k, v in kept.items() if v is not None} or None
+    if isinstance(value, (list, tuple)):
+        kept = [json_numbers(v) for v in value]
+        return kept if kept and all(v is not None for v in kept) else None
+    return None
+
+
+def examples_phase(ot, smi):
+    """``main()`` of every script of examples_torch/ on the card at the
+    example's own ray counts, in a temporary directory: host-clock seconds
+    after a synchronize, rays, the launches of kernels 1 and 2, the peak of
+    allocated memory and the numbers ``main`` returned, held to the
+    example's invariants (``examples_torch/common.py:check_results``).
+    ``plot`` is not called: it needs matplotlib. The rays are those the
+    run traced (:class:`RayCounter`), held against those the example says it
+    traces. ``gui_automation`` runs through the stand-in of phase ``gui``;
+    ``microscope`` needs fixtures that the repository does not ship
+    (``examples_torch/resources``) and is reported as not run. Kernel 1's
+    calls and the last fused batch of ``image_render_many_rays`` are held
+    against their plain versions afterwards."""
+    import importlib
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
+    from optrace_tpu_torch.parallel import render as render_mod
+    from examples_torch.common import check_results
+
+    names = example_names()
+    assert len(names) == 22, names
+    cwd = os.getcwd()
+    launches, run_calls, bin_call, seconds = {}, [], None, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as where:
+        os.chdir(where)
+        try:
+            for name in names:
+                mod = importlib.import_module(f"examples_torch.{name}")
+                if name == "microscope" and not os.path.isdir(mod.RES):
+                    emit(dict(phase="examples", example=name, gpu=smi, run=False,
+                              why="its ZEMAX and AGF fixtures are not in the repository "
+                                  "(examples_torch/resources)"))
+                    continue
+                undo = None
+                if name == "gui_automation":
+                    drawing, undo = drawing_backend()
+                try:
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()    # what the earlier phases still hold
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_launch_counts()
+                    with RunRecorder() as rec_run, BinRecorder(render_mod) as rec_bin, \
+                            RayCounter() as counter:
+                        t0 = time.perf_counter()
+                        results = mod.main()
+                        torch.cuda.synchronize()
+                        seconds[name] = time.perf_counter() - t0
+                    n_run, n_bin = conic_run.launches, bin_xyzw_cuda.launches
+                    variants = {f"{'pol' if p else 'nopol'},{'store' if s else 'nostore'}": k
+                                for (p, s), k in conic_run.variant_launches.items()}
+                    if conic_run.slot_launches:     # a stored trace writes its runs into its buffers
+                        assert len(variants) == 1, variants
+                        variants[f"{next(iter(variants))},slots"] = conic_run.slot_launches
+                    peak = torch.cuda.max_memory_allocated()
+                    if "sim" in results:
+                        results["sim"].close()
+                finally:
+                    if undo is not None:
+                        undo()
+                check_results(results)
+                assert "rays" not in results or counter.rays == results["rays"], \
+                    (name, counter.rays, results["rays"])
+                assert "batches" not in results or counter.traces == results["batches"], \
+                    (name, counter.traces, results["batches"])
+                assert (n_run > 0) == (name in EXAMPLES_KERNEL_1), (name, n_run)
+                assert (n_bin > 0) == (name not in EXAMPLES_WITHOUT_KERNEL_2), (name, n_bin)
+                assert len(rec_run.calls) == n_run, (name, len(rec_run.calls), n_run)
+                run_calls += rec_run.calls
+                if name == EXAMPLES_BIN_ROW:
+                    assert rec_bin.calls, name
+                    bin_call = rec_bin.calls[-1]
+                for v, k in variants.items():
+                    launches[f"conic_run[{v}]@examples"] = launches.get(f"conic_run[{v}]@examples", 0) + k
+                launches["bin_xyzw@examples"] = launches.get("bin_xyzw@examples", 0) + n_bin
+                line = dict(phase="examples", example=name, gpu=smi, run=True,
+                            seconds_host_clock=seconds[name], rays=counter.rays, traces=counter.traces,
+                            launches=dict(conic_run=n_run, conic_run_by_variant=variants,
+                                          bin_xyzw=n_bin),
+                            peak_allocated_bytes=peak, peak_above_start_bytes=peak - base,
+                            results=json_numbers(results))
+                if name == "gui_automation":
+                    line["drawing"] = drawing
+                emit(line)
+                del results, rec_run, rec_bin, counter
+                torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    t_phase = time.perf_counter() - t_phase
+
+    # the kernels on the inputs the examples gave them
+    def variant(c):
+        return f"{'pol' if c['pol'] is not None else 'nopol'},{'store' if c['store'] else 'nostore'}"
+    rows = {}
+    for v in sorted({variant(c) for c in run_calls}):
+        calls = [c for c in run_calls if variant(c) == v]
+        rows[f"conic_run[{v}]@examples"] = check_run_calls(calls, f"conic_run[{v}]@examples")
+        slotted = [c for c in calls if c["out"] is not None]
+        if slotted:
+            rows[f"conic_run[{v},slots]@examples"] = check_slot_calls(slotted, f"conic_run[{v},slots]@examples")
+        del calls, slotted
+    del run_calls
+    px, py, w, wl, Nx_b, Ny_b, ext_b = bin_call
+    rows["bin_xyzw@examples"] = check_binning(px, py, w, wl, ext_b, "bin_xyzw@examples",
+                                              Nx=Nx_b, Ny=Ny_b)
+    del px, py, w, wl, bin_call
+    assert set(rows) == set(launches), (sorted(rows), sorted(launches))
+    emit(dict(phase="examples_total", gpu=smi, examples=len(seconds),
+              seconds_host_clock=sum(seconds.values()), seconds_with_checks=t_phase,
+              launches=launches, kernel_rows={k: dict(max_abs_err=r["max_abs_err"], ms=r["ms"])
+                                              for k, r in rows.items()}))
+    return launches, rows
 
 
 # ----------------------------------------------------------------------
@@ -3529,6 +3731,11 @@ def main():
     launches.update(gui_launches)
     torch.cuda.empty_cache()
 
+    # ---- 20. the example scripts of examples_torch/ ---------------------------
+    example_launches, example_rows = examples_phase(ot, smi)
+    launches.update(example_launches)
+    torch.cuda.empty_cache()
+
     # ---- the kernels of every path --------------------------------------
     rows = dict(main_shapes)
     rows.update({k + "@asphere20": v for k, v in asph.items()})
@@ -3566,6 +3773,7 @@ def main():
     rows.update(gui_rows)
     rows["conic_run[nopol,store]@read_path"] = main_shapes["conic_run[nopol,store]"]
     rows.update(read_rows)
+    rows.update(example_rows)
     sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
                "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),
                "conic_step": ("conic_step.cu", "optrace_tpu/ops/pallas_trace.py:152")}

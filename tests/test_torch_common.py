@@ -12,6 +12,7 @@ import contextlib
 import os
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 import torch
@@ -365,3 +366,79 @@ def without_idle_draws(gui):
     explicitly where pixels count (screenshots, clicks at projected points)."""
     gui.scene.fig.canvas.draw_idle = lambda *args, **kwargs: None
     return gui
+
+
+# ----------------------------------------------------------------------
+# the example scripts of examples_torch/
+
+EXAMPLE_RAYS = 20000        # the ray cap of the examples in the tier-1 run
+
+
+@contextlib.contextmanager
+def recording_example():
+    """``chip_smoke.py``'s recorders while the block runs: of kernel 1's
+    wrapper in the trace, of kernel 2's in the images, renders and design
+    renders (on the CPU each wrapper takes its plain version), and of the
+    rays traced. Yields a dict that holds, once the block has ended, the
+    calls of each wrapper ("conic_run", "bin_xyzw"), the rays ("rays") and
+    the traces that traced them ("traces")."""
+    import chip_smoke
+    from optrace_tpu_torch.image import render_image
+    from optrace_tpu_torch.parallel import render
+    from optrace_tpu_torch.tracer import diff
+    counts = {}
+    with chip_smoke.RunRecorder() as run, chip_smoke.RayCounter() as rays, \
+            chip_smoke.BinRecorder(render_image) as b_image, chip_smoke.BinRecorder(render) as b_render, \
+            chip_smoke.BinRecorder(diff) as b_diff:
+        yield counts
+    counts.update(conic_run=len(run.calls), bin_xyzw=len(b_image.calls) + len(b_render.calls) + len(b_diff.calls),
+                  rays=rays.rays, traces=rays.traces)
+
+
+def run_example(name, where, rays=EXAMPLE_RAYS):
+    """``main(device="cpu", rays=rays)`` of ``examples_torch/<name>.py``,
+    then its ``plot`` where it has one, in the directory ``where`` with
+    progress bars and warnings off. Closes the figures the plots opened.
+
+    :return: (results, the sorted names of the files written, the calls of
+        the kernels' wrappers, the rays and the traces in ``main``:
+        :func:`recording_example`)"""
+    import importlib
+    import matplotlib
+    matplotlib.use("Agg")
+    mod = importlib.import_module(f"examples_torch.{name}")
+    cwd = os.getcwd()
+    os.chdir(where)
+    try:
+        with otp.global_options.no_progress_bar(), otp.global_options.no_warnings(), \
+                closing_new_figures():
+            with recording_example() as calls:
+                results = mod.main(device="cpu", rays=rays)
+            if hasattr(mod, "plot"):
+                mod.plot(results)
+    finally:
+        os.chdir(cwd)
+    written = sorted(f for f in os.listdir(where) if os.path.getsize(os.path.join(where, f)) > 0)
+    return results, written, dict(calls)
+
+
+@pytest.fixture(scope="module")
+def ran_examples(tmp_path_factory):
+    """Each example run once for the test module, by ``run_example`` in a
+    directory of its own: name -> (results, files, kernel calls)."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = run_example(name, tmp_path_factory.mktemp(name))
+        return cache[name]
+    return get
+
+
+def assert_kernels_as_the_smoke_expects(name, calls):
+    """The example calls kernel 1's wrapper exactly where ``chip_smoke.py``'s
+    phase ``examples`` expects launches of kernel 1, and kernel 2's exactly
+    where it expects launches of kernel 2."""
+    import chip_smoke
+    assert (calls["conic_run"] > 0) == (name in chip_smoke.EXAMPLES_KERNEL_1), (name, calls)
+    assert (calls["bin_xyzw"] > 0) == (name not in chip_smoke.EXAMPLES_WITHOUT_KERNEL_2), (name, calls)

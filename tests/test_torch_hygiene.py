@@ -4,6 +4,8 @@ device unless the CPU is asked for, and its kernel wrappers take the plain
 version for CPU tensors only.
 """
 
+import json
+import os
 import pathlib
 import re
 import subprocess
@@ -21,7 +23,9 @@ from optrace_tpu_torch.presets.geometry import double_gauss
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "optrace_tpu_torch").rglob("*.py")) \
     + sorted((ROOT / "optrace_tpu_torch" / "csrc").glob("*.cu*")) \
-    + [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_port.py", ROOT / "tools" / "allreduce_probe.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_port.py", ROOT / "tools" / "allreduce_probe.py"] \
+    + sorted((ROOT / "examples_torch").glob("*.py"))
+EXAMPLE_SCRIPTS = sorted(p.stem for p in (ROOT / "examples").glob("*.py"))
 # the glob must reach the kernels, colour and image modules too
 for _new in ("ops/cuda_trace.py", "csrc/trace_step.cuh", "csrc/conic_step.cu", "color/xyz.py", "color/luv.py",
              "color/srgb.py", "image/render_image.py", "image/base_image.py", "image/rgb_image.py",
@@ -39,6 +43,9 @@ for _new in ("ops/cuda_trace.py", "csrc/trace_step.cuh", "csrc/conic_step.cu", "
              "gui/property_browser.py", "gui/command_window.py", "parallel/graph.py",
              "csrc/bin_xyzw.cu"):
     assert ROOT / "optrace_tpu_torch" / _new in PORT_FILES, _new
+# every example script of the JAX package has its port
+for _name in EXAMPLE_SCRIPTS:
+    assert ROOT / "examples_torch" / f"{_name}.py" in PORT_FILES, _name
 
 
 def test_import_leaves_no_jax_behind():
@@ -60,6 +67,44 @@ def test_import_needs_no_matplotlib():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.split() == [otp.__version__, "load_zmx", "DataSurface2D"]
+
+
+@pytest.fixture(scope="module")
+def imported_examples(tmp_path_factory):
+    """Every script of examples_torch/ imported in one fresh interpreter in
+    an empty directory, where matplotlib cannot be imported and building
+    any object of the package raises: {script: "ok" or the error}, and the
+    files the imports left behind."""
+    where = tmp_path_factory.mktemp("imports")
+    code = ("import importlib, json, sys; sys.path.insert(0, %r); sys.modules['matplotlib'] = None; "
+            "import optrace_tpu_torch as ot; from optrace_tpu_torch.utils.base_class import BaseClass\n"
+            "def refuse(self, *a, **k): raise RuntimeError('built at import: ' + type(self).__name__)\n"
+            "BaseClass.__init__ = refuse; out = {}\n"
+            "for name in %r:\n"
+            "    try:\n"
+            "        importlib.import_module('examples_torch.' + name); out[name] = 'ok'\n"
+            "    except BaseException as e:\n"
+            "        out[name] = repr(e)\n"
+            "bad = [m for m in sys.modules if m.startswith(('matplotlib', 'jax', 'optrace_tpu.')) "
+            "and sys.modules[m] is not None]\n"
+            "print(json.dumps(dict(scripts=out, bad=bad)))" % (str(ROOT), EXAMPLE_SCRIPTS))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                         cwd=where)
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    return out, sorted(os.listdir(where))
+
+
+@pytest.mark.parametrize("name", EXAMPLE_SCRIPTS)
+def test_importing_an_example_runs_nothing(imported_examples, name):
+    """An example does its work in ``main`` and draws in ``plot``: importing
+    it builds no object of the package, writes no file and needs no
+    matplotlib (the GPU machine has none)."""
+    from optrace_tpu_torch.utils.base_class import BaseClass
+    assert issubclass(otp.Raytracer, BaseClass) and issubclass(otp.SphericalSurface, BaseClass)
+    out, left = imported_examples
+    assert out["scripts"][name] == "ok"
+    assert out["bad"] == [] and left == []
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
