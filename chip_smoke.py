@@ -52,16 +52,23 @@ a stand-in that draws nothing), runs ``main()`` of every example script of
 examples_torch/ at the example's own ray counts (phase ``examples``: seconds,
 rays, launches and peak memory of each, its results held to its
 invariants, kernel 1's calls and a fused batch of the many-rays render held
-against their plain versions), and checks that every path went through its
-kernels (launch counters). Every
+against their plain versions), runs the python blocks of the 18 usage pages
+of docs/ with no device named, so that ``device=None`` is the card (phase
+``docs``: every block up to a page's first drawing with matplotlib, the
+blocks that need the JAX API in torch forms; seconds, launches, peak memory
+and the devices of each page's raytracers, images and tensors), and checks
+that every path went through its kernels (launch counters). Every
 phase prints one JSON line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure exits with a non-zero code. Without a CUDA device the script
 fails at once: nothing here runs on the CPU.
 """
 
+import contextlib
+import glob
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1897,8 +1904,6 @@ def sharded_phase(ot, smi, n=N_ITERATIVE, batch=N_RAYS):
     same seeds (rank 0 draws the unsharded stream); then interrupted and
     resumed under the mesh. A process group that does not come up fails the
     phase: there is no fallback to gloo."""
-    import datetime
-    import shutil
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1907,12 +1912,8 @@ def sharded_phase(ot, smi, n=N_ITERATIVE, batch=N_RAYS):
     from optrace_tpu_torch.parallel.checkpoint import RenderCheckpoint
 
     torch.cuda.set_device(0)
-    pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
     t0 = time.perf_counter()
-    dist.init_process_group("nccl", init_method="file://" + os.path.join(pg_dir, "rendezvous"),
-                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120),
-                            device_id=torch.device("cuda", 0))
-    try:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as pg_dir, one_rank_group("nccl", pg_dir):
         assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
         mesh = ot.default_mesh()
         axis = ot.global_options.mesh_axis_name
@@ -1992,9 +1993,6 @@ def sharded_phase(ot, smi, n=N_ITERATIVE, batch=N_RAYS):
                   sharded_vs_unsharded_max_abs=d_plain, resumed_vs_uninterrupted_max_abs=d_resume,
                   image_max=float(plain.data.max()), tolerance="bit for bit",
                   power=sharded.power()))
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(pg_dir, ignore_errors=True)
     return launches
 
 
@@ -2307,6 +2305,311 @@ def examples_phase(ot, smi):
 
 
 # ----------------------------------------------------------------------
+# the usage pages of docs/: their python blocks run against the port
+
+DOCS_FENCE = re.compile(r"```python\n(.*?)```", re.DOTALL)
+DOCS_JAX = re.compile(r"\b(jax|jnp|pallas)")          # a block that needs the JAX API
+DOCS_DRAWING = re.compile(r"\bmatplotlib\b|\bplt\.|\.plots\b|\bTraceGUI\b|\.gui\b")
+DOCS_PAGES_WITH_BLOCKS, DOCS_BLOCKS = 18, 127
+DOCS_BIN_ROW = "parallel.md"            # kernel 2's row: the first batch of this page's fused render
+
+# The blocks that need the JAX API (or, parallel.md [2], a JAX key), in
+# torch form: the same scene, calls and asserts through the port's API.
+DOCS_TORCH_FORMS = {
+    ("advanced.md", 3): """\
+with ot.global_options.no_progress_bar(), ot.global_options.no_warnings():
+    RT.trace(1000)
+
+ot.global_options.show_progress_bar = True
+ot.global_options.wavelength_range        # [380, 780]
+ot.global_options.spectral_colormap       # None or custom callable
+ot.global_options.cuda_trace              # whole-run CUDA kernel on/off
+""",
+    ("elements.md", 3): """\
+# constant direction, cartesian or spherical (degrees)
+RS1 = ot.RaySource(circ, orientation="Constant", s=[0.7, 0, 0.7])
+RS2 = ot.RaySource(circ, orientation="Constant", s_sph=[20, -30])
+
+# all rays converge toward a point
+RS3 = ot.RaySource(circ, orientation="Converging", conv_pos=[10, 2, -1])
+
+# direction as a function of emit position (torch tensors in and out)
+import torch
+
+def or_func(x, y, g=5):
+    s = torch.stack([-x, -y, torch.ones_like(x) * g], dim=1)
+    return s / torch.linalg.norm(s, dim=1, keepdim=True)
+
+RS4 = ot.RaySource(circ, orientation="Function", or_func=or_func,
+                   or_args=dict(g=10))
+""",
+    ("elements.md", 5): """\
+RS7 = ot.RaySource(circ, divergence="None", s=[0.7, 0, 0.7])   # parallel
+RS8 = ot.RaySource(circ, divergence="Lambertian", div_angle=10) # cosine law
+RS9 = ot.RaySource(circ, divergence="Isotropic", div_angle=10)  # uniform solid angle
+RS10 = ot.RaySource(circ, divergence="Function",                # tabulated once on the host
+                    div_func=lambda e: np.cos(e) ** 2, div_angle=10)
+""",
+    ("parallel.md", 0): """\
+import numpy as np
+import torch
+import optrace_tpu_torch as ot
+from optrace_tpu_torch.parallel import make_fused_render
+
+RT = ot.Raytracer(outline=[-5, 5, -5, 5, -5, 40])
+RT.add(ot.RaySource(ot.CircularSurface(r=1), pos=[0, 0, 0],
+                    divergence="Lambertian", div_angle=5,
+                    spectrum=ot.presets.light_spectrum.d65))
+RT.add(ot.Lens(ot.SphericalSurface(r=3, R=20), ot.SphericalSurface(r=3, R=-20),
+               n=ot.presets.refraction_index.BK7, pos=[0, 0, 10], d=1))
+RT.add(ot.Detector(ot.RectangularSurface(dim=[4, 4]), pos=[0, 0, 30]))
+assert not RT._pretrace_check(1000)
+
+render, ext = make_fused_render(RT, 50_000, detector_index=0,
+                                extent=(-2, 2, -2, 2), Nx=189, Ny=189)
+tile = render(ot.make_generator(0))
+assert tile.shape == (189, 189, 4) and float(tile[:, :, 3].sum()) > 0
+""",
+    ("parallel.md", 1): """\
+from optrace_tpu_torch.parallel import make_sharded_render, default_mesh
+
+mesh = default_mesh()                      # every rank of the default process group
+step, ext = make_sharded_render(RT, 50_000, mesh=mesh, detector_index=0,
+                                extent=(-2, 2, -2, 2), Nx=189, Ny=189)
+img = step(0)                              # batch 0, already reduced
+assert np.isfinite(img.cpu().numpy()).all()
+""",
+    ("parallel.md", 2): """\
+from optrace_tpu_torch.parallel import RenderCheckpoint
+
+ck = RenderCheckpoint(path="render_ck.npz", total_batches=4, seed=7)
+while ck.remaining():
+    i = ck.done
+    ck.add(render(ck.generator(i, RT.device)))
+    ck.save()                       # atomic; resume-safe at any point
+
+img_sum = ck.image()
+ck2 = RenderCheckpoint(path="render_ck.npz", total_batches=4, seed=7)
+ck2.load()
+assert ck2.done == 4
+""",
+    ("spectrum.md", 7): """\
+wl_samples = s_gauss.random_wavelengths(ot.make_generator(0), 1000)
+assert float(wl_samples.min()) >= 380.0
+""",
+    ("surfaces.md", 5): """\
+import torch
+
+axicon = ot.FunctionSurface1D(r=3, func=lambda r: r)
+saddle = ot.FunctionSurface2D(r=2, func=lambda x, y: 0.05 * (x**2 - y**2))
+""",
+    ("surfaces.md", 6): """\
+def axicon_deriv(r):
+    return torch.where(r == 0, 0.0, torch.ones_like(r))
+
+axicon_d = ot.FunctionSurface1D(r=3, func=lambda r: r,
+                                deriv_func=axicon_deriv)
+""",
+    ("surfaces.md", 7): """\
+def axicon_f(r, a):
+    return a * r
+
+def axicon_fd(r, a):
+    return torch.where(r == 0, 0.0, torch.full_like(r, a))
+
+ax = ot.FunctionSurface1D(r=3, func=axicon_f, func_args=dict(a=-0.3),
+                          deriv_func=axicon_fd, deriv_args=dict(a=-0.3))
+""",
+    ("surfaces.md", 9): """\
+def half_circle(x, y, r):
+    return (x > 0) | (x**2 + y**2 > r**2)
+
+masked = ot.FunctionSurface2D(r=3, func=lambda x, y: torch.zeros_like(x),
+                              mask_func=half_circle, mask_args=dict(r=0.1))
+""",
+}
+
+
+def docs_pages():
+    """The pages whose python blocks tests/test_docs_snippets.py runs
+    against the JAX package: docs/usage/*.md and docs/physics/*.md, sorted
+    paths."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return sorted(glob.glob(os.path.join(here, "docs", "usage", "*.md"))
+                  + glob.glob(os.path.join(here, "docs", "physics", "*.md")))
+
+
+def docs_blocks(path):
+    """The fenced python blocks of a page, in order."""
+    with open(path) as f:
+        return DOCS_FENCE.findall(f.read())
+
+
+def docs_port_block(page, index, src):
+    """Block ``index`` of ``page`` as it runs against the port: its torch
+    form where it has one, with ``optrace_tpu`` read as ``optrace_tpu_torch``."""
+    return re.sub(r"\boptrace_tpu\b", "optrace_tpu_torch", DOCS_TORCH_FORMS.get((page, index), src))
+
+
+def docs_card_blocks(blocks):
+    """(the blocks the card machine runs: every block before the first one
+    that draws with matplotlib, which that machine lacks; {index: why} of
+    the others). A page is one namespace, so a block after a drawing block
+    is not run either."""
+    cut = next((i for i, src in enumerate(blocks) if DOCS_DRAWING.search(src)), len(blocks))
+    why = {}
+    for i in range(cut, len(blocks)):
+        m = DOCS_DRAWING.search(blocks[i])
+        why[i] = (f"needs matplotlib ({m.group(0)!r}), which the card machine lacks" if m else
+                  f"follows block {cut}, which needs matplotlib (a page is one namespace)")
+    return blocks[:cut], why
+
+
+def run_docs_blocks(page, blocks):
+    """Run the (index, source) pairs of one page in one namespace, in
+    order, and return the namespace. A block that raises raises: its
+    traceback names the page and the block."""
+    ns = {}
+    for i, src in blocks:
+        exec(compile(src, f"{page}[block {i}]", "exec"), ns)
+    return ns
+
+
+@contextlib.contextmanager
+def kept_global_options(go):
+    """Restore every global option after the block (a page sets some)."""
+    saved = dict(vars(go))
+    try:
+        yield
+    finally:
+        vars(go).clear()
+        vars(go).update(saved)
+
+
+@contextlib.contextmanager
+def one_rank_group(backend, where):
+    """The default process group of this process alone (``file://``
+    rendezvous in the directory ``where``), destroyed after the block."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    kw = dict(device_id=torch.device("cuda", torch.cuda.current_device())) if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method="file://" + os.path.join(where, "rendezvous"),
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120), **kw)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def docs_devices(ot, ns):
+    """The devices of what a page left in its namespace: of each
+    ``Raytracer`` (its own and its stored trace's tensors), each
+    ``RenderImage`` (where it was rendered) and each tensor, by name."""
+    import torch
+    from optrace_tpu_torch.image.render_image import RenderImage
+    found = {}
+    for name, v in ns.items():
+        if isinstance(v, ot.Raytracer):
+            found[name] = {v.device.type} | {t.device.type for t in (v.rays._dev or {}).values() if t is not None}
+        elif isinstance(v, RenderImage) and v.device is not None:
+            found[name] = {torch.device(v.device).type}
+        elif isinstance(v, torch.Tensor):
+            found[name] = {v.device.type}
+    return found
+
+
+def docs_phase(ot, smi):
+    """The python blocks of the 18 usage pages (127 blocks; the same pages
+    as tests/test_docs_snippets.py, with ``optrace_tpu`` read as
+    ``optrace_tpu_torch`` and the blocks that need the JAX API in their torch
+    forms, :data:`DOCS_TORCH_FORMS`) on the card with no device named, so
+    ``device=None`` is the card: the route a user's code takes. Each page
+    runs in one namespace in a temporary directory, up to its first block
+    that draws with matplotlib (:func:`docs_card_blocks`; every block not
+    run is named with its reason); ``parallel.md`` inside an NCCL process
+    group of one rank. A block that raises fails the smoke. One line a
+    page: blocks run and not run, host-clock seconds after a synchronize,
+    the launches of kernels 1 and 2, the peak of allocated memory, and the
+    devices of the page's raytracers, images and tensors, all ``cuda``.
+    Afterwards every recorded call of kernel 2 is held bit for bit against
+    its plain version, and the first batch of ``parallel.md``'s fused render
+    makes kernel 2's row (:func:`check_binning`). No page's scene has a run
+    of four refractions, so kernel 1 is launched by none: a page that
+    launches it fails the phase until the phase holds its calls too."""
+    import torch
+    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
+    from optrace_tpu_torch.ops.binning import bin_xyzw_fixed
+    from optrace_tpu_torch.image import render_image as render_image_mod
+    from optrace_tpu_torch.parallel import render as render_mod
+    from optrace_tpu_torch.tracer import diff as diff_mod
+
+    pages = [(os.path.basename(p), docs_blocks(p)) for p in docs_pages()]
+    pages = [(page, blocks) for page, blocks in pages if blocks]
+    assert (len(pages), sum(len(b) for _, b in pages)) == (DOCS_PAGES_WITH_BLOCKS, DOCS_BLOCKS)
+    launches, bin_calls, bin_row, totals = {"bin_xyzw@docs": 0}, [], None, dict(run=0, not_run=0, seconds=0.0)
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_docs_") as where:
+        os.chdir(where)
+        try:
+            for page, blocks in pages:
+                ran, not_run = docs_card_blocks(blocks)
+                ran = [(i, docs_port_block(page, i, src)) for i, src in enumerate(ran)]
+                assert not any(DOCS_JAX.search(src) for _, src in ran), page
+                group = one_rank_group("nccl", where) if page == "parallel.md" else contextlib.nullcontext()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                with kept_global_options(ot.global_options), group, BinRecorder(render_image_mod) as b_image, \
+                        BinRecorder(render_mod) as b_render, BinRecorder(diff_mod) as b_diff:
+                    t0 = time.perf_counter()
+                    ns = run_docs_blocks(page, ran)
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                    devices = docs_devices(ot, ns)
+                n_run, n_bin = conic_run.launches, bin_xyzw_cuda.launches
+                peak = torch.cuda.max_memory_allocated()
+                off_card = {k: sorted(v) for k, v in devices.items() if v != {"cuda"}}
+                assert not off_card, (page, off_card)
+                assert n_run == 0, f"{page} launched kernel 1 {n_run} times: hold its calls in this phase"
+                bins = b_image.calls + b_render.calls + b_diff.calls
+                assert bool(bins) == (n_bin > 0), (page, len(bins), n_bin)
+                bin_calls += bins
+                if page == DOCS_BIN_ROW:
+                    bin_row = b_render.calls[0]
+                launches["bin_xyzw@docs"] += n_bin
+                totals["run"] += len(ran)
+                totals["not_run"] += len(not_run)
+                totals["seconds"] += seconds
+                emit(dict(phase="docs", page=page, gpu=smi, blocks=len(blocks), blocks_run=len(ran),
+                          not_run={str(i): why for i, why in not_run.items()}, seconds_host_clock=seconds,
+                          launches=dict(conic_run=n_run, bin_xyzw=n_bin),
+                          peak_allocated_bytes=peak, peak_above_start_bytes=peak - base,
+                          devices={k: sorted(v) for k, v in devices.items()}))
+                del ns, b_image, b_render, b_diff, bins
+                torch.cuda.empty_cache()
+        finally:
+            os.chdir(cwd)
+    t_phase = time.perf_counter() - t_phase
+
+    # kernel 2 on the inputs the pages gave it
+    for c in bin_calls:
+        assert _same_bits(bin_xyzw_cuda(*c), bin_xyzw_fixed(*c)), "bin_xyzw@docs: kernel against plain version"
+    px, py, w, wl, Nx_b, Ny_b, ext_b = bin_row
+    rows = {"bin_xyzw@docs": check_binning(px, py, w, wl, ext_b, "bin_xyzw@docs", Nx=Nx_b, Ny=Ny_b)}
+    rows["bin_xyzw@docs"]["calls_bit_equal_to_plain"] = len(bin_calls)
+    del px, py, w, wl, bin_row, bin_calls
+    emit(dict(phase="docs_total", gpu=smi, pages=len(pages), blocks_run=totals["run"],
+              blocks_not_run=totals["not_run"], seconds_host_clock=totals["seconds"],
+              seconds_with_checks=t_phase, launches=launches,
+              kernel_rows={k: dict(max_abs_err=r["max_abs_err"], ms=r["ms"]) for k, r in rows.items()}))
+    return launches, rows
+
+
+# ----------------------------------------------------------------------
 # the stored trace: kept on the card, read on the host only when asked; the
 # trace cache; sums that do not depend on the order of the rays
 
@@ -2362,6 +2665,67 @@ def _same_trace(ot, scene, RT, n, seed, **kw):
     assert np.array_equal(RT._msgs, fresh._msgs)
 
 
+RANGE_CHANGED = [300.0, 900.0]           # nm: global_options.wavelength_range after the change
+
+
+def wavelength_range_check(ot, n):
+    """A change of ``global_options.wavelength_range`` across a graphed key
+    (the double Gauss, no-pol, whose source draws over the range): seven
+    traces at the old range (five eager, the capture, a replay), then at the
+    new range a trace that must equal a fresh raytracer's eager trace bit for
+    bit and draw over the new range, from a new entry that does not replay
+    the old key's graph; five more, the last of which captures the new
+    key's graph, against a fresh raytracer again; back at the old range, a
+    replay of the old graph against a fresh raytracer. Both graphs are held
+    (``MAX_GRAPHED_TRACES`` = 2)."""
+    import torch
+    from optrace_tpu_torch.tracer.raytracer import TRACE_CAPTURE_CALL
+    go = ot.global_options
+    old = list(go.wavelength_range)
+    RT = double_gauss_scene(ot, no_pol=True)
+    for _ in range(TRACE_CAPTURE_CALL + 1):
+        RT.trace(n)
+    entry_old = RT._trace_entry(n)
+    assert entry_old.run.graph is not None
+
+    def span():
+        wl = RT.rays._dev["wl"]
+        return [float(wl.min()), float(wl.max())]
+    res = dict(scene="double_gauss", no_pol=True, N=n, ranges=[old, RANGE_CHANGED],
+               calls_before_change=TRACE_CAPTURE_CALL + 1)
+    go.wavelength_range = RANGE_CHANGED
+    try:
+        seed = RT._seed_counter
+        t0 = time.perf_counter()
+        RT.trace(n)
+        res["seconds_first_trace_new_range"] = time.perf_counter() - t0
+        entry_new = RT._trace_entry(n)
+        assert entry_new is not entry_old and entry_new.run.graph is None and entry_old.run.graph is not None
+        _same_trace(ot, double_gauss_scene, RT, n, seed, no_pol=True)
+        res["wl_span_new_range"] = span()
+        assert res["wl_span_new_range"][0] < old[0] and res["wl_span_new_range"][1] > old[1], res
+        for _ in range(TRACE_CAPTURE_CALL - 1):
+            seed = RT._seed_counter
+            RT.trace(n)
+        assert entry_new.run.graph is not None and entry_old.run.graph is not None
+        _same_trace(ot, double_gauss_scene, RT, n, seed, no_pol=True)
+    finally:
+        go.wavelength_range = old
+    seed = RT._seed_counter
+    RT.trace(n)
+    assert RT._trace_entry(n) is entry_old and entry_old.run.graph is not None
+    _same_trace(ot, double_gauss_scene, RT, n, seed, no_pol=True)
+    res["wl_span_old_range_replay"] = span()
+    assert old[0] <= res["wl_span_old_range_replay"][0] and res["wl_span_old_range_replay"][1] <= old[1], res
+    res.update(graphs_held=len(_held_graphs(RT)), new_range_vs_fresh_raytracer="bit for bit",
+               new_key_captured_vs_fresh_raytracer="bit for bit",
+               old_key_replay_vs_fresh_raytracer="bit for bit")
+    assert res["graphs_held"] == 2
+    del RT, entry_old, entry_new
+    torch.cuda.empty_cache()
+    return res
+
+
 def trace_phase(ot, smi, dg_runs, n=N_RAYS):
     """``Raytracer.trace`` at 10⁶ rays of the double Gauss (polarization
     and none) and of the 57-surface stack (bench.py's stored-trace scene
@@ -2383,7 +2747,8 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
     the first read against an eager ``.cpu()`` conversion of the same
     tensors; more graphed keys than ``MAX_GRAPHED_TRACES``, and the memory
     after the oldest graph was dropped. The ``steps`` scene with HURB
-    replayed against its eager trace."""
+    replayed against its eager trace. A change of the wavelength range
+    across a graphed key (:func:`wavelength_range_check`)."""
     import numpy as np
     import torch
     from optrace_tpu_torch.ops.cuda_run import conic_run
@@ -2589,6 +2954,7 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
                     pool_bytes=entry.run.pool_bytes, hurb_neg_dir_rays=hurb_rows))
     del RTs, entry
     torch.cuda.empty_cache()
+    out.append(wavelength_range_check(ot, n))
     emit(dict(phase="trace", gpu=smi, cuda_fuse_planar=ot.global_options.cuda_fuse_planar, traces=out,
               cpu_reference_ms_per_surface_per_mray=CPU_REFERENCE_MS_PER_SURFACE_MRAY))
     return launches
@@ -3736,6 +4102,11 @@ def main():
     launches.update(example_launches)
     torch.cuda.empty_cache()
 
+    # ---- 21. the usage pages of docs/, with no device named -------------------
+    docs_launches, docs_rows = docs_phase(ot, smi)
+    launches.update(docs_launches)
+    torch.cuda.empty_cache()
+
     # ---- the kernels of every path --------------------------------------
     rows = dict(main_shapes)
     rows.update({k + "@asphere20": v for k, v in asph.items()})
@@ -3774,6 +4145,7 @@ def main():
     rows["conic_run[nopol,store]@read_path"] = main_shapes["conic_run[nopol,store]"]
     rows.update(read_rows)
     rows.update(example_rows)
+    rows.update(docs_rows)
     sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
                "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),
                "conic_step": ("conic_step.cu", "optrace_tpu/ops/pallas_trace.py:152")}

@@ -428,17 +428,25 @@ class Raytracer(Group):
         graph stands for. An entry is kept for each key, the
         scene part of the tracing snapshot (``snap``, taken here when not
         given; :meth:`_scene_key`), the rays a source draws
-        (``rays.N_list``, set by ``rays.init``), the device and N, in a
+        (``rays.N_list``, set by ``rays.init``), the device, N and
+        ``global_options.wavelength_range``, in a
         least-recently-used cache of :data:`TRACE_CACHE_SIZE` entries
         (:meth:`_cached`; ``clear()`` empties it). An entry also holds the
         element and source objects it was built from, and is built anew
         when another object stands in their place. The entries hold tables
         (kB to MB), never rays, except that of a graphed trace: its
-        graph's pool (:data:`MAX_GRAPHED_TRACES`)."""
+        graph's pool (:data:`MAX_GRAPHED_TRACES`). The range is in the
+        key because the sources' samplers read it when they are built (a
+        ``"Constant"`` spectrum draws over it, a Gaussian is cut to it, a
+        blackbody, function or histogram spectrum and an RGB image source's
+        primaries are tabulated over it); the media's
+        tables and the geometry do not depend on it. The JAX package's
+        ``_get_trace_fn`` leaves it out and keeps drawing the old range."""
         elements = self._tracing_elements()[:-1]    # the end absorber follows from the outline
         sources = list(self.ray_sources)
         snap = self.tracing_snapshot() if snap is None else snap
-        key = self._scene_key(snap) + (tuple(int(n) for n in self.rays.N_list), str(self.device), int(N))
+        key = self._scene_key(snap) + (tuple(int(n) for n in self.rays.N_list), str(self.device), int(N),
+                                       tuple(global_options.wavelength_range))
 
         def build():
             steps = self._build_steps()

@@ -346,6 +346,39 @@ def gui_scene(pkg, ray_outline=(-12, 12, -12, 12, -12, 80)):
 
 
 @contextlib.contextmanager
+def cpu_default_device():
+    """``device=None`` read as the CPU while the block runs, in every module
+    of the port that bound ``utils/device.py:resolve_device`` (and so in
+    ``make_generator``, the raytracer, the renders, the images, the mesh);
+    a device that is named is resolved as before. Every module of the port
+    is imported first, so that none binds the CPU rule for good by being
+    imported inside the block. Undone after the block. The package itself
+    has no switch for this: without a card, ``device=None`` raises."""
+    import importlib
+    import pkgutil
+    import sys
+    from optrace_tpu_torch.utils import device
+    real = device.resolve_device
+
+    def cpu_rule(dev=None):
+        return torch.device("cpu") if dev is None else real(dev)
+    for info in pkgutil.walk_packages(otp.__path__, "optrace_tpu_torch."):
+        importlib.import_module(info.name)
+    with pytest.MonkeyPatch.context() as mp:
+        for name, mod in list(sys.modules.items()):
+            if name.split(".")[0] == "optrace_tpu_torch" and getattr(mod, "resolve_device", None) is real:
+                mp.setattr(mod, "resolve_device", cpu_rule)
+        yield cpu_rule
+
+
+@pytest.fixture
+def cpu_as_default_device():
+    """:func:`cpu_default_device` for one test."""
+    with cpu_default_device() as rule:
+        yield rule
+
+
+@contextlib.contextmanager
 def closing_new_figures():
     """Close every matplotlib figure that the block opened (the GUI's image
     actions open one each) and leave the others, such as a live GUI's
