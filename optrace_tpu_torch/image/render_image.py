@@ -31,6 +31,7 @@ from ..ops import binning
 from ..ops.cuda_binning import bin_xyzw_cuda
 from ..utils.device import resolve_device
 from ..utils.global_options import global_options
+from ..utils.tracing import span
 
 
 def _host_array(t: torch.Tensor) -> np.ndarray:
@@ -165,28 +166,29 @@ class RenderImage(BaseClass):
         N: requested pixel count of the smaller side; snapped to the nearest
         entry of SIZES, then the stored 945-px stack is block-averaged down.
         """
-        self.__check_for_image()
-        if mode not in self.image_modes:
-            raise ValueError(f"Invalid display_mode {mode}, should be one of {self.image_modes}.")
-        N = int(N)
-        if not 1 <= N <= self.MAX_IMAGE_SIDE:
-            raise ValueError(f"N needs to be between 1 and {self.MAX_IMAGE_SIDE}")
+        with span("get"):
+            self.__check_for_image()
+            if mode not in self.image_modes:
+                raise ValueError(f"Invalid display_mode {mode}, should be one of {self.image_modes}.")
+            N = int(N)
+            if not 1 <= N <= self.MAX_IMAGE_SIDE:
+                raise ValueError(f"N needs to be between 1 and {self.MAX_IMAGE_SIDE}")
 
-        side = min(self.SIZES, key=lambda s: abs(s - N))
-        data = torch.from_numpy(np.asarray(self._data, dtype=np.float64)).to(self.device)
-        stack = self._block_mean(data, self.MAX_IMAGE_SIDE // side)
+            side = min(self.SIZES, key=lambda s: abs(s - N))
+            data = torch.from_numpy(np.asarray(self._data, dtype=np.float64)).to(self.device)
+            stack = self._block_mean(data, self.MAX_IMAGE_SIDE // side)
 
-        meta = dict(extent=self.extent, projection=self.projection, desc=self.desc,
-                    long_desc=self.long_desc, quantity=mode, limit=self.limit)
+            meta = dict(extent=self.extent, projection=self.projection, desc=self.desc,
+                        long_desc=self.long_desc, quantity=mode, limit=self.limit)
 
-        if mode in ("sRGB (Absolute RI)", "sRGB (Perceptual RI)"):
-            intent = "Absolute" if "Absolute" in mode else "Perceptual"
-            rgb = color.xyz_to_srgb(stack[:, :, :3].contiguous(), rendering_intent=intent, L_th=L_th,
-                                    chroma_scale=chroma_scale)
-            # + 0.0 turns a -0.0 that clamp keeps into the +0.0 of np.clip
-            return RGBImage(_host_array(torch.clamp(rgb, 0.0, 1.0) + 0.0), **meta)
+            if mode in ("sRGB (Absolute RI)", "sRGB (Perceptual RI)"):
+                intent = "Absolute" if "Absolute" in mode else "Perceptual"
+                rgb = color.xyz_to_srgb(stack[:, :, :3].contiguous(), rendering_intent=intent, L_th=L_th,
+                                        chroma_scale=chroma_scale)
+                # + 0.0 turns a -0.0 that clamp keeps into the +0.0 of np.clip
+                return RGBImage(_host_array(torch.clamp(rgb, 0.0, 1.0) + 0.0), **meta)
 
-        return ScalarImage(_host_array(self._scalar_channel(mode, stack)), **meta)
+            return ScalarImage(_host_array(self._scalar_channel(mode, stack)), **meta)
 
     # ------------------------------------------------------------------
     def __fix_extent(self) -> None:

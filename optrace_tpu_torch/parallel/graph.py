@@ -63,6 +63,7 @@ import torch.autograd.forward_ad as fwAD
 
 from ..ops import cuda_binning, cuda_run, cuda_trace
 from ..utils.global_options import global_options
+from ..utils.tracing import span
 
 _COUNTED = ("launches", "variant_launches", "slot_launches", "kind_launches")
 
@@ -180,11 +181,14 @@ class CapturedStep:
             self._reset()
             self._switches = switches
         if self.graph is not None:
-            return self._replay(gen)
+            with span("graph.replay"):
+                return self._replay(gen)
         if self._calls >= self.eager_calls and not self._eager_only:
-            return self._capture(gen)
+            with span("graph.capture"):     # with its first replay
+                return self._capture(gen)
         self._calls += 1
-        out = self.fn(gen)
+        with span("graph.eager"):
+            out = self.fn(gen)
         self._eager_only = self._eager_only or _carries_derivative(out)
         return out
 

@@ -34,6 +34,7 @@ from ..ops import binning
 from ..ops.cuda_binning import bin_xyzw_cuda
 from ..utils.device import resolve_device
 from ..utils.global_options import global_options
+from ..utils.tracing import device_interval
 from .checkpoint import batch_generator
 from .graph import capture
 
@@ -152,7 +153,10 @@ def _eager_fused_render(RT, N_batch: int, configs: list, device=None):
     def render(gen):
         if gen.device != device:
             raise ValueError(f"the generator lies on {gen.device}, the render on {device}")
-        p, s, pols, w, wl = source_fn(gen)
+        # while a profiler records, a capture keeps the interval's events as
+        # nodes of the graph, and each replay times the sampling on the card
+        with device_interval("render.sampling", device):
+            p, s, pols, w, wl = source_fn(gen)
         out = trace_bundle(steps, n0_fn, outline, p, s, pols, w, wl,
                            no_pol, use_hurb, gen=gen,
                            sinks=[(fn, init_hit_carry(N_batch, device), m) for fn, m in sinks],

@@ -48,6 +48,7 @@ from ..utils.device import resolve_device
 from ..utils.global_options import global_options
 from ..utils.property_checker import PropertyChecker as pc
 from ..utils.progress_bar import ProgressBar
+from ..utils.tracing import span
 from ..utils.warnings import warning
 
 TRACE_CACHE_SIZE = 32       # entries of the trace cache, as in the JAX package
@@ -493,10 +494,11 @@ class Raytracer(Group):
                     for src, Ni in zip(self.ray_sources, self.rays.N_list) if int(Ni)]
 
         def source_fn(gen):
-            parts = [sample(gen) for sample in samplers]
-            if len(parts) == 1:
-                return parts[0]
-            return tuple(torch.cat(xs, dim=0) for xs in zip(*parts))
+            with span("sampling"):
+                parts = [sample(gen) for sample in samplers]
+                if len(parts) == 1:
+                    return parts[0]
+                return tuple(torch.cat(xs, dim=0) for xs in zip(*parts))
         return source_fn
 
     # ------------------------------------------------------------------
@@ -504,43 +506,49 @@ class Raytracer(Group):
 
     def trace(self, N: int) -> None:
         """Trace N rays through the geometry and store their sections."""
-        N = int(N)
-        snap = self.tracing_snapshot()      # the scene as it is traced: read once
-        if self._pretrace_check(N, snap):
-            return
+        with span("trace"):
+            N = int(N)
+            with span("trace.prepare"):
+                snap = self.tracing_snapshot()      # the scene as it is traced: read once
+                if self._pretrace_check(N, snap):
+                    return
 
-        nt = len(self.tracing_surfaces) + 2
-        if self.rays.storage_size(N, nt, self.no_pol) > self.MAX_RAY_STORAGE_RAM:
-            raise RuntimeError(f"More than {self.MAX_RAY_STORAGE_RAM * 1e-9:.1f} GB RAM requested. "
-                               "Either decrease the number of rays, surfaces or do an iterative "
-                               "render, or increase Raytracer.MAX_RAY_STORAGE_RAM.")
+                nt = len(self.tracing_surfaces) + 2
+                if self.rays.storage_size(N, nt, self.no_pol) > self.MAX_RAY_STORAGE_RAM:
+                    raise RuntimeError(f"More than {self.MAX_RAY_STORAGE_RAM * 1e-9:.1f} GB RAM requested. "
+                                       "Either decrease the number of rays, surfaces or do an iterative "
+                                       "render, or increase Raytracer.MAX_RAY_STORAGE_RAM.")
 
-        bar = ProgressBar("Raytracing: ", 3)
-        self.rays.init(self.ray_sources, N, nt, self.no_pol, seed=self._seed_counter)
-        entry = self._trace_entry(N, snap)
-        bar.update()
+                bar = ProgressBar("Raytracing: ", 3)
+                self.rays.init(self.ray_sources, N, nt, self.no_pol, seed=self._seed_counter)
+                entry = self._trace_entry(N, snap)
+                bar.update()
 
-        self._seed_counter += 1
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self._seed_counter)
-        self._bound_graphs(entry)
-        # the last trace's tensors go first, where no one else holds them
-        self.rays.drop_arrays()
-        # a replayed trace returns copies of its graph's outputs, which the
-        # next replay overwrites
-        p, w, pol, n, wl, infos = entry.run(gen)
-        # the sections stay on the device: the storage makes its host arrays
-        # at their first read
-        self.rays.fill(p, w, pol, n, wl)
-        self.rays.lock()
-        self._msgs = infos.cpu().numpy().astype(int)      # the one copy: waits for the trace
-        del p, w, pol, n, wl, infos
-        bar.update()
-        self._show_messages(N)
-        bar.finish()
+                self._seed_counter += 1
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(self._seed_counter)
+                self._bound_graphs(entry)
+                # the last trace's tensors go first, where no one else holds them
+                self.rays.drop_arrays()
+            # a replayed trace returns copies of its graph's outputs, which the
+            # next replay overwrites
+            with span("trace.run"):
+                p, w, pol, n, wl, infos = entry.run(gen)
+            # the sections stay on the device: the storage makes its host arrays
+            # at their first read
+            with span("trace.fill"):
+                self.rays.fill(p, w, pol, n, wl)
+                self.rays.lock()
+            with span("trace.infos_wait"):
+                self._msgs = infos.cpu().numpy().astype(int)      # the one copy: waits for the trace
+            del p, w, pol, n, wl, infos
+            bar.update()
+            with span("trace.messages"):
+                self._show_messages(N)
+            bar.finish()
 
-        # the scene did not change while it was traced, the rays did
-        self._last_trace_snapshot = dict(snap, Rays=self.rays.crepr())
+            # the scene did not change while it was traced, the rays did
+            self._last_trace_snapshot = dict(snap, Rays=self.rays.crepr())
 
     # ------------------------------------------------------------------
     # messages
@@ -668,27 +676,31 @@ class Raytracer(Group):
         """Render the detector image from the stored trace. The hit search,
         the selection of the hits and the binning run on the raytracer's
         device."""
-        if limit is not None and extent is not None and "_dont_filter" not in kwargs:
-            warning("Using the limit parameter with a user defined extent will produce an "
-                    "incorrect detector image, as rays outside the extent are not convolved.")
+        with span("detector_image"):
+            if limit is not None and extent is not None and "_dont_filter" not in kwargs:
+                warning("Using the limit parameter with a user defined extent will produce an "
+                        "incorrect detector image, as rays outside the extent are not convolved.")
 
-        p, w, wl, extent_out, projection, bar, ill_count = \
-            self._hit_detector("Detector Image", detector_index, source_index, extent, projection_method)
+            with span("detector_image.hits"):
+                p, w, wl, extent_out, projection, bar, ill_count = \
+                    self._hit_detector("Detector Image", detector_index, source_index, extent,
+                                       projection_method)
 
-        detector = self.detectors[detector_index]
-        pname = f": {detector.desc}" if detector.desc != "" else ""
-        desc = f"{Detector.abbr}{detector_index}{pname} at z = {detector.pos[2]:.5g} mm"
-        if source_index is not None:
-            desc = f"Rays from RS{source_index} at " + desc
+            detector = self.detectors[detector_index]
+            pname = f": {detector.desc}" if detector.desc != "" else ""
+            desc = f"{Detector.abbr}{detector_index}{pname} at z = {detector.pos[2]:.5g} mm"
+            if source_index is not None:
+                desc = f"Rays from RS{source_index} at " + desc
 
-        img = RenderImage(long_desc=desc, extent=extent_out, projection=projection)
-        img.render(p, w, wl, limit=limit, device=self.device, **kwargs)
-        bar.finish()
+            img = RenderImage(long_desc=desc, extent=extent_out, projection=projection)
+            with span("detector_image.bin"):
+                img.render(p, w, wl, limit=limit, device=self.device, **kwargs)
+            bar.finish()
 
-        if ill_count:
-            warning(f"{ill_count} rays ({100 * ill_count / self.rays.N:.3g}% of all rays) were "
-                    f"ill-conditioned for hit finding at detector {detector_index}.")
-        return img
+            if ill_count:
+                warning(f"{ill_count} rays ({100 * ill_count / self.rays.N:.3g}% of all rays) were "
+                        f"ill-conditioned for hit finding at detector {detector_index}.")
+            return img
 
     def detector_spectrum(self, detector_index: int = 0, source_index: int = None,
                           extent=None, **kwargs) -> LightSpectrum:
@@ -893,67 +905,74 @@ class Raytracer(Group):
         :param batch_size: rays a batch; under a mesh a multiple of its size
         :return: accumulated RenderImage
         """
-        if not self.detectors:
-            raise RuntimeError("Detector(s) Missing.")
-        if (N := int(N)) <= 0:
-            raise ValueError(f"Ray number N needs to be a positive int, but is {N}.")
-        if self._pretrace_check(min(N, self.ITER_RAYS_STEP)):
-            raise RuntimeError("Geometry checks failed. Tracing aborted. Check the warnings.")
+        with span("render_huge"):
+            if not self.detectors:
+                raise RuntimeError("Detector(s) Missing.")
+            if (N := int(N)) <= 0:
+                raise ValueError(f"Ray number N needs to be a positive int, but is {N}.")
+            if self._pretrace_check(min(N, self.ITER_RAYS_STEP)):
+                raise RuntimeError("Geometry checks failed. Tracing aborted. Check the warnings.")
 
-        from ..parallel.render import make_fused_render_multi, make_sharded_render
-        from ..parallel.checkpoint import RenderCheckpoint, batch_generator
+            from ..parallel.render import make_fused_render_multi, make_sharded_render
+            from ..parallel.checkpoint import RenderCheckpoint, batch_generator
 
-        batch = int(batch_size) if batch_size else min(N, self.ITER_RAYS_STEP)
-        n_batches = max(1, -(-N // batch))
+            batch = int(batch_size) if batch_size else min(N, self.ITER_RAYS_STEP)
+            n_batches = max(1, -(-N // batch))
 
-        detector = self.detectors[detector_index]
-        dsurf = detector.surface
-        ext = tuple(dsurf.extent[:4]) if extent is None else tuple(extent)
+            detector = self.detectors[detector_index]
+            dsurf = detector.surface
+            ext = tuple(dsurf.extent[:4]) if extent is None else tuple(extent)
 
-        pname = f": {detector.desc}" if detector.desc != "" else ""
-        desc = f"{Detector.abbr}{detector_index}{pname} at z = {detector.pos[2]:.5g} mm"
-        img = RenderImage(long_desc=desc, extent=np.asarray(ext, dtype=np.float64),
-                          projection=projection_method
-                          if isinstance(dsurf, SphericalSurface) else None)
-        img.render(limit=limit, _dont_filter=True, device=self.device)   # fix extent, alloc zeros
-        Ny, Nx, _ = img._data.shape
+            pname = f": {detector.desc}" if detector.desc != "" else ""
+            desc = f"{Detector.abbr}{detector_index}{pname} at z = {detector.pos[2]:.5g} mm"
+            img = RenderImage(long_desc=desc, extent=np.asarray(ext, dtype=np.float64),
+                              projection=projection_method
+                              if isinstance(dsurf, SphericalSurface) else None)
+            img.render(limit=limit, _dont_filter=True, device=self.device)   # fix extent, alloc zeros
+            Ny, Nx, _ = img._data.shape
 
-        if mesh is not None:
-            step, _ = make_sharded_render(self, batch, mesh=mesh, detector_index=detector_index,
-                                          extent=tuple(img.extent), Nx=Nx, Ny=Ny,
-                                          axis_name=global_options.mesh_axis_name,
-                                          projection_method=projection_method,
-                                          _batches=n_batches)
-            group, rank = step.group, step.rank
-        else:
-            render, _ = make_fused_render_multi(
-                self, batch, [dict(detector_index=detector_index,
-                                   extent=tuple(img.extent),
-                                   projection_method=projection_method,
-                                   Nx=Nx, Ny=Ny)], device=self.device, _batches=n_batches)
-            group, rank = None, 0
+            with span("render_huge.build"):
+                if mesh is not None:
+                    step, _ = make_sharded_render(self, batch, mesh=mesh, detector_index=detector_index,
+                                                  extent=tuple(img.extent), Nx=Nx, Ny=Ny,
+                                                  axis_name=global_options.mesh_axis_name,
+                                                  projection_method=projection_method,
+                                                  _batches=n_batches)
+                    group, rank = step.group, step.rank
+                else:
+                    render, _ = make_fused_render_multi(
+                        self, batch, [dict(detector_index=detector_index,
+                                           extent=tuple(img.extent),
+                                           projection_method=projection_method,
+                                           Nx=Nx, Ny=Ny)], device=self.device, _batches=n_batches)
+                    group, rank = None, 0
 
-            def step(batch_index, seed):
-                return render(batch_generator(seed, batch_index, self.device))[0][0]
+                    def step(batch_index, seed):
+                        return render(batch_generator(seed, batch_index, self.device))[0][0]
 
-        ck = RenderCheckpoint(checkpoint_path, n_batches, group=group)
-        bar = ProgressBar("Rendering: ", n_batches - ck.done) if rank == 0 else None
-        with torch.no_grad():
-            for i in ck.remaining():
-                ck.add(step(i, ck.seed))
-                if checkpoint_path and (i % checkpoint_every == checkpoint_every - 1):
-                    ck.save()
-                if bar is not None:
-                    bar.update()
-        if checkpoint_path:
-            ck.save()
-        if bar is not None:
-            bar.finish()
+            ck = RenderCheckpoint(checkpoint_path, n_batches, group=group)
+            bar = ProgressBar("Rendering: ", n_batches - ck.done) if rank == 0 else None
+            with torch.no_grad():
+                for i in ck.remaining():
+                    with span("render_huge.batch"):
+                        tile = step(i, ck.seed)
+                    with span("render_huge.accumulate"):
+                        ck.add(tile)
+                    del tile
+                    if checkpoint_path and (i % checkpoint_every == checkpoint_every - 1):
+                        ck.save()
+                    if bar is not None:
+                        bar.update()
+            if checkpoint_path:
+                ck.save()
+            if bar is not None:
+                bar.finish()
 
-        img._data += ck.image()
-        if limit is not None:
-            img._apply_rayleigh_filter()
-        return img
+            with span("render_huge.finish"):
+                img._data += ck.image()
+                if limit is not None:
+                    img._apply_rayleigh_filter()
+            return img
 
     # ------------------------------------------------------------------
     # focus search: every candidate plane's cost from the kept sections,

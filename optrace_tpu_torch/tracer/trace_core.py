@@ -38,6 +38,7 @@ from ..ops import geom
 from ..ops.cuda_run import (conic_run, conic_run_reference, PreparedRun, SectionSlots, section_buffer,
                             ABSORB_KINDS)
 from ..ops.vector import rdot, cross, normalize_safe
+from ..utils.tracing import span
 from .scene_compile import SurfaceFns, host_values
 
 INV_SQRT2 = 1.0 / np.sqrt(2.0)
@@ -137,7 +138,9 @@ def _refract(step: TraceStep, p_new, s, w, wl, pols, hit, no_pol):
     """Snell + Fresnel at a refracting surface."""
     params = step.sfns.params
     n = step.sfns.normal_fn(params, p_new[:, 0], p_new[:, 1])
-    return _refract_core(n, step.n1_fn(wl), step.n2_fn(wl), s, w, pols, hit, no_pol)
+    with span("trace_bundle.media"):
+        n1, n2 = step.n1_fn(wl), step.n2_fn(wl)
+    return _refract_core(n, n1, n2, s, w, pols, hit, no_pol)
 
 
 def _refract_core(n, n1, n2, s, w, pols, hit, no_pol):
@@ -720,7 +723,8 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
     np_dtype = np.float64 if p.dtype == torch.float64 else np.float32
-    n_amb_last = n0_fn(wl)
+    with span("trace_bundle.media"):
+        n_amb_last = n0_fn(wl)
     sections = None
     if store_sections:
         sections = _Sections(len(steps) + 1, p, w, pols, n_amb_last, no_pol)
@@ -743,7 +747,8 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
     n_tab = None
     if run_idxs_all:
         media, pairs = _media_rows(steps, run_idxs_all, _ambient_chain(steps, n0_fn))
-        n_tab = torch.stack([m(wl) for m in media])
+        with span("trace_bundle.media"):
+            n_tab = torch.stack([m(wl) for m in media])
 
     for run_kind, run_idxs in runs:
         if run_kind == "run":
@@ -753,10 +758,11 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
                 if _run_tracks_grad(steps, run_idxs, p, s, w, pols, n_tab, no_pol):
                     sections.to_lists()
                 slots = sections.slots(run_idxs[0] + 1, len(run_idxs))
-            (p, s, w, pols, run_infos, run_p, run_w,
-             run_pol) = _conic_run_dispatch(
-                steps, run_idxs, chain, outline64, n_tab, pairs,
-                p, s, w, pols, no_pol, store_sections, plans, residuals, out=slots)
+            with span("trace_bundle.run"):
+                (p, s, w, pols, run_infos, run_p, run_w,
+                 run_pol) = _conic_run_dispatch(
+                    steps, run_idxs, chain, outline64, n_tab, pairs,
+                    p, s, w, pols, no_pol, store_sections, plans, residuals, out=slots)
             L = len(run_idxs)
             infos.extend(run_infos[i] for i in range(L))
             if store_sections and slots is None:
@@ -786,7 +792,8 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         p_prev = p
         w_prev = w
 
-        p, hit, ill, _ = _surface_hit(step, p, s, hw)
+        with span("trace_bundle.step"):
+            p, hit, ill, _ = _surface_hit(step, p, s, hw)
         info[ILL_COND] += torch.count_nonzero(ill)
 
         if step.action == "refract":
@@ -795,28 +802,34 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
             miss = hw & ~hit
             w = torch.where(miss, 0.0, w)
             info[ABSORB_MISSING] += torch.count_nonzero(miss)
-            s, w, pols, n_tir = _refract(step, p, s, w, wl, pols, hit, no_pol)
+            with span("trace_bundle.step"):
+                s, w, pols, n_tir = _refract(step, p, s, w, wl, pols, hit, no_pol)
             info[TIR] += n_tir
-            n_after = step.n2_fn(wl)
+            with span("trace_bundle.media"):
+                n_after = step.n2_fn(wl)
         elif step.action == "ideal":
             miss = hw & ~hit
             w = torch.where(miss, 0.0, w)
             info[ABSORB_MISSING] += torch.count_nonzero(miss)
-            s, pols = _refract_ideal(step, p, s, pols, hit, no_pol)
-            n_after = step.n2_fn(wl)
+            with span("trace_bundle.step"):
+                s, pols = _refract_ideal(step, p, s, pols, hit, no_pol)
+            with span("trace_bundle.media"):
+                n_after = step.n2_fn(wl)
         elif step.action == "filter":
             w = torch.where(hit, w * step.spectrum_fn(wl), w)
             n_after = n_amb_last
         else:   # absorb
             w = torch.where(hit, 0.0, w)
             if use_hurb and step.hurb:
-                s, w, pols, n_neg = _hurb(step, _hurb_normals(gen, p.shape[0], dev, p.dtype),
-                                          p, s, w, wl, n_amb_last, pols, hw & ~hit, no_pol,
-                                          hurb_factor)
+                normals = _hurb_normals(gen, p.shape[0], dev, p.dtype)
+                with span("trace_bundle.step"):
+                    s, w, pols, n_neg = _hurb(step, normals, p, s, w, wl, n_amb_last, pols, hw & ~hit,
+                                              no_pol, hurb_factor)
                 info[HURB_NEG_DIR] += n_neg
             n_after = n_amb_last
 
-        p, w, n_out = _outline_intersection(p_prev, p, s, w, out_rel)
+        with span("trace_bundle.step"):
+            p, w, n_out = _outline_intersection(p_prev, p, s, w, out_rel)
         info[OUTLINE_INTERSECTION] += n_out
 
         if sink_list or store_sections:

@@ -512,27 +512,32 @@ def _kernel_name(name):
     return "memset" if "emset" in name else name
 
 
+# the program's labels (``utils/tracing.py``) that name a kind of the trace's work
+TRACE_LABELS = {"optrace:sampling": "source_sampling", "optrace:trace_bundle.media": "media",
+                "optrace:trace_bundle.step": "step", "optrace:trace_bundle.run": "run"}
+
+
 def trace_kind(op, prev_kind=None) -> str:
     """The kind of the trace's work (:data:`TRACE_KINDS`) that a profiled
-    operator ``op`` of :func:`labelled_trace` does, from the nearest label
-    around it and the operators it is part of: the sources' sampling and
-    the media (labelled), the INFOS counters (``count_nonzero``, the run's
-    counters, the counters' zeros and sums in ``trace_bundle``), the steps
-    outside the runs (labelled, "rest") and, directly in ``trace_bundle``,
-    the media table (the stack right after the media), the sections (the
-    absolute positions, the copies of section 0 and of the unrolled steps
-    into their columns, where a tree stacks them the stacks of the
-    per-section tensors, the INFOS stack among them) and the rest (frame
-    shifts, absorption, HURB draws). Kernel 1, which writes its runs'
-    sections, goes by its name ("kernel_1"), and a replay's copies of its
-    outputs are "outputs" (:func:`trace_device_split`). ``prev_kind`` is
-    the kind of the work launched before."""
+    operator ``op`` of an eager trace does, from the nearest of the
+    program's labels around it (:data:`TRACE_LABELS`) and the operators it
+    is part of: the sources' sampling and the media (labelled), the INFOS
+    counters (``count_nonzero``, the run's counters, the counters' zeros and
+    sums in ``trace_bundle``), the steps outside the runs (labelled, "rest")
+    and, directly in ``trace_bundle``, the sections (the absolute positions,
+    the copies of section 0 and of the unrolled steps into their columns,
+    where a tree stacks them the stacks of the per-section tensors, the
+    INFOS stack among them) and the rest (frame shifts, absorption, HURB
+    draws). Kernel 1, which writes its runs' sections, goes by its name
+    ("kernel_1"), and a replay's copies of its outputs are "outputs"
+    (:func:`trace_device_split`). ``prev_kind`` is the kind of the work
+    launched before."""
     ops, label, e = set(), None, op
     while e is not None:
         if e.name.startswith("aten::"):
             ops.add(e.name)
-        elif e.name.startswith("trace:") and label is None:
-            label = e.name[len("trace:"):]
+        elif e.name in TRACE_LABELS and label is None:
+            label = TRACE_LABELS[e.name]
         e = e.cpu_parent
     if label in ("source_sampling", "media"):
         return label
@@ -549,63 +554,14 @@ def trace_kind(op, prev_kind=None) -> str:
     return "rest"
 
 
-def labelled_trace(RT, n):
-    """``(run, restore)``: ``run(gen)`` is the trace function of ``RT``'s
-    entry for ``n`` rays (the sources' sampling and ``trace_bundle``, the
-    operations that its graph captured, in the same order) with
-    ``torch.profiler.record_function`` labels that :func:`trace_kind`
-    reads: ``trace:source_sampling`` around the sampling, ``trace:media``
-    around every medium's evaluation, ``trace:step`` around the functions
-    of an unrolled step and ``trace:run`` around a run's dispatch.
-    ``restore()`` puts the wrapped functions of ``trace_core`` back."""
-    import functools
-    import torch
-    from torch.profiler import record_function
-    from optrace_tpu_torch.tracer import trace_core
-
-    def labelled(fn, label):
-        @functools.wraps(fn)
-        def run(*a, **kw):
-            with record_function(label):
-                return fn(*a, **kw)
-        return run
-
-    saved = [(name, getattr(trace_core, name)) for name in
-             ("_surface_hit", "_refract", "_refract_ideal", "_hurb", "_outline_intersection",
-              "_conic_run_dispatch")]
-    for name, fn in saved:
-        setattr(trace_core, name, labelled(fn, "trace:run" if name == "_conic_run_dispatch" else "trace:step"))
-
-    def restore():
-        for name, fn in saved:
-            setattr(trace_core, name, fn)
-
-    media = {}          # by identity, as the media rows are made
-
-    def medium(fn):
-        if fn is None:
-            return None
-        return media.setdefault(id(fn), labelled(fn, "trace:media"))
-    entry = RT._trace_entry(n)
-    steps = [st._replace(n1_fn=medium(st.n1_fn), n2_fn=medium(st.n2_fn)) for st in entry.steps]
-    n0_fn, plans = medium(RT.n0.on_device(RT.device)), trace_core.RunPlans(steps)
-    outline = tuple(float(v) for v in RT.outline)
-
-    def run(gen):
-        with torch.no_grad():
-            with record_function("trace:source_sampling"):
-                p, s, pols, w, wl = entry.source_fn(gen)
-            return trace_core.trace_bundle(steps, n0_fn, outline, p, s, pols, w, wl, RT.no_pol, RT.use_hurb,
-                                           gen=gen, hurb_factor=float(RT.HURB_FACTOR), plans=plans)
-    return run, restore
-
-
 def trace_device_split(RT, n, reps=3):
     """Device ms and launches of a replayed ``trace`` of ``n`` rays, by kind
     (:data:`TRACE_KINDS`): kernel 1 by its name; every other kernel of the
     replay, in the order the card ran it, matched one for one to the
-    kernels of an eager run of :func:`labelled_trace` in the order the card
-    ran them (the longest matching blocks of their names), each of which the
+    kernels of an eager run of the trace entry's own function (the
+    operations that its graph captured, in the same order, under the
+    program's spans) in the order the card ran them (the longest matching
+    blocks of their names), each of which the
     profiler ties to the operator that launched it (the runtime call with
     the kernel's correlation id, and the operator around that call;
     :func:`trace_kind`). The replay's device-to-device copies outside the
@@ -633,7 +589,8 @@ def trace_device_split(RT, n, reps=3):
         # kernels, memsets and device-to-device copies; not the copies to or
         # from the host, nor the labels' ranges on the device's timeline
         return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                       and (e.name.startswith("Memcpy DtoD") or not e.name.startswith(("Memcpy", "trace:")))),
+                       and (e.name.startswith("Memcpy DtoD")
+                            or not e.name.startswith(("Memcpy", "optrace:")))),
                       key=lambda e: e.time_range.start)
 
     def runtime_calls(prof):
@@ -647,17 +604,14 @@ def trace_device_split(RT, n, reps=3):
             out[kind]["launches"] += 1
         return out
 
-    run, restore = labelled_trace(RT, n)
-    try:
-        gen = torch.Generator(device=RT.device)
-        gen.manual_seed(1)
-        run(gen)                            # prepares the labelled run's tables
+    run = RT._trace_entry(n).run.fn         # the captured function, called eagerly
+    gen = torch.Generator(device=RT.device)
+    gen.manual_seed(1)
+    run(gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(gen)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(gen)
-            torch.cuda.synchronize()
-    finally:
-        restore()
     launch = runtime_calls(prof)
     eager, kind = [], None
     for d in device_events(prof):
