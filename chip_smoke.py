@@ -341,10 +341,11 @@ def sections_agree(RT_a, RT_b, label):
 
 
 def reset_launch_counts():
-    from optrace_tpu_torch.ops import cuda_run, cuda_binning, cuda_trace
+    from optrace_tpu_torch.ops import cuda_run, cuda_binning, cuda_sampling, cuda_trace
     cuda_run.reset_launch_counts()
     cuda_binning.reset_launch_counts()
     cuda_trace.reset_launch_counts()
+    cuda_sampling.reset_launch_counts()
 
 
 class PlainRunCounter:
@@ -827,6 +828,58 @@ def check_conic_step():
                 bytes=nbytes, bound_ms=max(bound_bytes_ms, bound_ops_ms),
                 bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
                 bound_bytes_ms=bound_bytes_ms, bound_ops_ms=bound_ops_ms, library_ms=None)
+
+
+def eye_chart_pixels():
+    """The Arizona eye cell's ColorChecker chart (benchmark/data): 24 patches
+    of 16² pixels, (64, 96, 3) sRGB in [0, 1]."""
+    import numpy as np
+    rows = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "data",
+                                   "colorchecker_srgb.csv"),
+                      delimiter=",", comments="#", skiprows=2, usecols=(1, 2, 3)) / 255.0
+    return np.repeat(np.repeat(rows.reshape(4, 6, 3), 16, axis=0), 16, axis=1)
+
+
+def check_srgb_wavelengths():
+    """The sRGB wavelength kernel on the eye's chart at N = 10⁶: the pixels,
+    ``choice`` and ``u`` as the image source's sampler draws them, the
+    kernel against the plain route (``color.wavelengths_from_srgb`` on the
+    gathered pixels) bit for bit, its device time alone, the plain route's
+    time and the bound (20 B a ray)."""
+    import torch
+    import optrace_tpu_torch as ot
+    from optrace_tpu_torch.ops import sampling
+    from optrace_tpu_torch.ops.cuda_sampling import (primary_lut, srgb_wavelengths,
+                                                     srgb_wavelengths_reference)
+
+    N = N_RAYS
+    chart = eye_chart_pixels()
+    src = ot.RaySource(ot.RGBImage(chart, s=[46.8, 31.2]))
+    g = torch.Generator(device="cuda").manual_seed(20)
+    P = src.image_pixels(sampling.stratified_interval_sampling(g, N, 0.0, 1.0))
+    choice = sampling.stratified_interval_sampling(g, N, 0.0, 1.0)
+    u = sampling.stratified_interval_sampling(g, N, 0.0, 1.0)
+    pix = torch.as_tensor(chart.reshape(-1, 3), dtype=torch.float32, device="cuda")
+    lut = primary_lut("cuda")
+
+    before = srgb_wavelengths.launches
+    wl = srgb_wavelengths(P, choice, u, pix, lut)
+    ref = srgb_wavelengths_reference(P, choice, u, pix)
+    torch.cuda.synchronize()
+    assert srgb_wavelengths.launches == before + 1
+    differing = int((wl.view(torch.int32) != ref.view(torch.int32)).sum())
+    err = float((wl - ref).abs().max())
+    assert differing == 0, f"srgb_wavelengths: {differing} rays differ from the plain route (max {err} nm)"
+    assert 380.0 <= float(wl.min()) and float(wl.max()) <= 780.0
+    ms = device_kernel_ms(lambda: srgb_wavelengths(P, choice, u, pix, lut),
+                          "srgb_wavelengths_kernel", calls=10)
+    ms_events = cuda_ms(lambda: srgb_wavelengths(P, choice, u, pix, lut), reps=20, warmup=2)
+    plain_ms = cuda_ms(lambda: srgb_wavelengths_reference(P, choice, u, pix))
+    nbytes = 20 * N                 # 8 B index, two 4 B uniforms in, a 4 B wavelength out
+    return dict(name="srgb_wavelengths", N=N, image=list(chart.shape), max_abs_err=err,
+                rays_differing=differing, launches=1, ms=ms, ms_between_events=ms_events,
+                plain_ms=plain_ms, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", library_ms=None)
 
 
 def device_kernel_ms(fn, name, calls=10, per_call=False):
@@ -3253,6 +3306,7 @@ def main():
     from optrace_tpu_torch.ops.cuda_run import conic_run
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
     from optrace_tpu_torch.ops.cuda_trace import conic_step
+    from optrace_tpu_torch.ops.cuda_sampling import srgb_wavelengths
     from optrace_tpu_torch.parallel import render as render_mod
     from optrace_tpu_torch.image import render_image as render_image_mod
     from optrace_tpu_torch.tracer.trace_core import trace_bundle, _partition_runs
@@ -3850,6 +3904,9 @@ def main():
     step_res = check_conic_step()
     launches["conic_step"] = step_res["launches"]
     emit(dict(phase="conic_step_probe", gpu=smi, **step_res))
+    srgb_res = check_srgb_wavelengths()
+    launches["srgb_wavelengths@eye_chart"] = srgb_res["launches"]
+    emit(dict(phase="srgb_wavelengths", gpu=smi, **srgb_res))
 
     # ---- 9. every step kind outside the runs: image source, filter, HURB, ----
     # ---- ideal lens, through Raytracer.trace ------------------------------
@@ -3867,6 +3924,9 @@ def main():
         t_steps = time.perf_counter() - t0
     assert conic_run.launches == 2 and conic_run.variant_launches == {(True, True): 2}, conic_run.variant_launches
     launches["conic_run[pol,store]@steps"] = conic_run.launches
+    # the chart's wavelengths: one launch of the sRGB kernel
+    assert srgb_wavelengths.launches == 1, srgb_wavelengths.launches
+    launches["srgb_wavelengths@steps"] = srgb_wavelengths.launches
     steps_kernel = check_run_calls(rec_s.calls, "conic_run[pol,store]@steps")
     del rec_s
     n_launch_steps = device_launches(lambda: RTs.trace(N_RAYS))
@@ -4120,6 +4180,8 @@ def main():
     # main path's, else the main path's row (same shapes) with this path's launches
     rows["bin_xyzw@source_image"] = bin_source
     rows["conic_run[pol,store]@steps"] = steps_kernel
+    rows["srgb_wavelengths@eye_chart"] = srgb_res
+    rows["srgb_wavelengths@steps"] = srgb_res
     rows["conic_run[nopol,store]@iterative"] = main_shapes["conic_run[nopol,store]"]
     rows["conic_run[nopol,nostore]@iterative"] = main_shapes["conic_run[nopol,nostore]"]
     rows["bin_xyzw@iterative"] = bin_iter
@@ -4148,7 +4210,8 @@ def main():
     rows.update(docs_rows)
     sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
                "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),
-               "conic_step": ("conic_step.cu", "optrace_tpu/ops/pallas_trace.py:152")}
+               "conic_step": ("conic_step.cu", "optrace_tpu/ops/pallas_trace.py:152"),
+               "srgb_wavelengths": ("srgb_wavelengths.cu", "none: the port's own kernel")}
     kernels = []
     for label, r in rows.items():
         n_launch = launches.get(label, 0)

@@ -319,14 +319,27 @@ def _primary_inverse_cdfs(wl_range: tuple):
 
 @functools.lru_cache(maxsize=8)
 def _primary_lookups(wl_range: tuple, device, dtype, u_dtype):
-    """The primaries' power factors (a ``dtype`` tensor on ``device``) and
-    their three inverse CDFs over ``wl_range`` for uniforms of ``u_dtype``:
-    made once for a device, so that a sampled batch copies nothing from the
-    host."""
+    """The primaries' power factors (a ``dtype`` tensor on ``device``),
+    their three inverse CDFs over ``wl_range`` for uniforms of ``u_dtype``,
+    and the raw tables behind them: a (3, M) ``u_dtype`` tensor and the
+    values (left, right) of a lookup outside [0, 1]. Made once for a
+    device, so that a sampled batch copies nothing from the host."""
     from ..ops import sampling
     wl, pdfs = _primary_inverse_cdfs(wl_range)
     factors = torch.as_tensor(SRGB_PRIMARY_POWER_FACTORS, dtype=dtype, device=device)
-    return factors, tuple(sampling.inverse_cdf(wl, f, device, u_dtype) for f in pdfs)
+    made = [sampling.inverse_cdf_table(wl, f, device, u_dtype) for f in pdfs]
+    ends = made[0][1:]
+    tables = torch.stack([t for t, _, _ in made])
+    return factors, tuple(sampling.table_lookup(t, *ends) for t in tables), tables, ends
+
+
+def check_wavelength_range() -> None:
+    """Raise unless ``global_options.wavelength_range`` holds the visible
+    band, over which the primaries are defined."""
+    if tools.WL_MIN0 < global_options.wavelength_range[0] \
+            or tools.WL_MAX0 > global_options.wavelength_range[1]:
+        raise RuntimeError(f"Wavelength range {global_options.wavelength_range} does not "
+                           f"include [{tools.WL_MIN0}, {tools.WL_MAX0}] needed here.")
 
 
 def wavelengths_from_srgb(rgb, choice, u) -> torch.Tensor:
@@ -337,20 +350,19 @@ def wavelengths_from_srgb(rgb, choice, u) -> torch.Tensor:
     :param rgb: (N, 3) sRGB values, a tensor on the sampling device
     :param choice, u: (N,) tensors on the same device
     """
-    if tools.WL_MIN0 < global_options.wavelength_range[0] \
-            or tools.WL_MAX0 > global_options.wavelength_range[1]:
-        raise RuntimeError(f"Wavelength range {global_options.wavelength_range} does not "
-                           f"include [{tools.WL_MIN0}, {tools.WL_MAX0}] needed here.")
-
+    check_wavelength_range()
     rgbl = srgb_to_srgb_linear(rgb)
-    factors, lookups = _primary_lookups(tuple(global_options.wavelength_range), rgbl.device,
-                                        rgbl.dtype, u.dtype)
-    rgbl = rgbl * factors
-    csum = torch.cumsum(rgbl, dim=-1)
-    last = csum[:, -1:]
-    csum = csum / torch.where(last > 0, last, 1.0)
-    make_r = choice < csum[:, 0]
-    make_b = choice > csum[:, 1]
+    factors, lookups, _, _ = _primary_lookups(tuple(global_options.wavelength_range),
+                                              rgbl.device, rgbl.dtype, u.dtype)
+    r, g, b = (rgbl * factors).unbind(-1)
+    # the running sums of the channel powers, each over the last where it is
+    # positive (a scan of three values, written out: PyTorch's scan of an
+    # innermost dimension of 3 is slow on the card)
+    c1 = r + g
+    c2 = c1 + b
+    last = torch.where(c2 > 0, c2, 1.0)
+    make_r = choice < r / last
+    make_b = choice > c1 / last
 
     # the same uniform through all three inverse CDFs, selected per ray
     wl_r, wl_g, wl_b = (lookup(u) for lookup in lookups)

@@ -26,7 +26,7 @@ from ..spectrum.light_spectrum import LightSpectrum
 from .. import color
 from ..image.rgb_image import RGBImage
 from ..image.grayscale_image import GrayscaleImage
-from ..ops import sampling
+from ..ops import cuda_sampling, sampling
 from ..ops.vector import cross as tcross, normalize_safe
 from ..utils.property_checker import PropertyChecker as pc
 
@@ -163,6 +163,8 @@ class RaySource(Element):
             pixel_fn = None if one_pixel else self._pixel_lookup(device)
             if rgb_image:
                 pix = torch.as_tensor(self._image._data.reshape(-1, 3), dtype=f32, device=device)
+                # on the card the colour path is one kernel, with the tables made now
+                lut = cuda_sampling.primary_lut(device) if pix.device.type == "cuda" else None
 
         # orientations
         if self.orientation == "Constant":
@@ -232,8 +234,13 @@ class RaySource(Element):
                     P = pixel_fn(sampling.stratified_interval_sampling(gen, N, 0.0, 1.0))
                 rx, ry = sampling.stratified_rectangle_sampling(gen, N, 0.0, 1.0, 0.0, 1.0)
                 p = self.image_positions(P, rx, ry).to(f32)
-                if rgb_image:
+                if rgb_image and lut is None:
                     wavelengths = color.random_wavelengths_from_srgb(gen, pix[P]).to(f32)
+                elif rgb_image:
+                    # the uniforms of the plain route, drawn in its order
+                    choice = sampling.stratified_interval_sampling(gen, N, 0.0, 1.0)
+                    u = sampling.stratified_interval_sampling(gen, N, 0.0, 1.0)
+                    wavelengths = cuda_sampling.srgb_wavelengths(P, choice, u, pix, lut)
 
             if self.orientation == "Constant":
                 s_or = s_const.expand(N, 3)

@@ -135,6 +135,24 @@ def cdf_from_pdf(x: np.ndarray, f: np.ndarray) -> np.ndarray:
     return cdf / cdf[-1]
 
 
+def inverse_cdf_table(x, f, device, dtype=torch.float32):
+    """The table behind :func:`inverse_cdf`: the inverse CDF of the pdf
+    ``f`` tabulated over ``x`` (host data), resampled onto a uniform grid of
+    u in [0, 1] and made on ``device``, with the values ``left`` and
+    ``right`` that a lookup below 0 or above 1 returns. Returns
+    ``(table, left, right)``."""
+    x = np.asarray(x, dtype=np.float64)
+    table = torch.as_tensor(invert_cdf_uniform(x, cdf_from_pdf(x, f)), dtype=dtype,
+                            device=device)
+    return table, float(x[0]), float(x[-1])
+
+
+def table_lookup(table, left: float, right: float):
+    """``u -> x`` through a table of :func:`inverse_cdf_table`."""
+    return lambda u: uniform_interp(u, table, 0.0, 1.0 / (table.shape[0] - 1), left=left,
+                                    right=right)
+
+
 def inverse_cdf(x, f, device, dtype=torch.float32):
     """``u -> x``: the inverse CDF of the pdf ``f`` tabulated over ``x``
     (host data), for uniforms ``u`` in [0, 1] of ``dtype`` on ``device``.
@@ -143,12 +161,7 @@ def inverse_cdf(x, f, device, dtype=torch.float32):
     lookup is index arithmetic instead of a binary search; the table is
     made on the device now, and a call copies nothing from the host.
     """
-    x = np.asarray(x, dtype=np.float64)
-    M = 4096
-    table = torch.as_tensor(invert_cdf_uniform(x, cdf_from_pdf(x, f), M), dtype=dtype,
-                            device=device)
-    left, right = float(x[0]), float(x[-1])
-    return lambda u: uniform_interp(u, table, 0.0, 1.0 / (M - 1), left=left, right=right)
+    return table_lookup(*inverse_cdf_table(x, f, device, dtype))
 
 
 def inverse_transform_from_u(u, x: np.ndarray, f: np.ndarray):

@@ -61,7 +61,7 @@ import contextlib
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from ..ops import cuda_binning, cuda_run, cuda_trace
+from ..ops import cuda_binning, cuda_run, cuda_sampling, cuda_trace
 from ..utils.global_options import global_options
 from ..utils.tracing import span
 
@@ -70,7 +70,8 @@ _COUNTED = ("launches", "variant_launches", "slot_launches", "kind_launches")
 
 def _wrappers():
     """The kernel wrappers whose attributes count launches."""
-    return (cuda_run.conic_run, cuda_binning.bin_xyzw_cuda, cuda_trace.conic_step)
+    return (cuda_run.conic_run, cuda_binning.bin_xyzw_cuda, cuda_trace.conic_step,
+            cuda_sampling.srgb_wavelengths)
 
 
 def launch_counts() -> dict:
