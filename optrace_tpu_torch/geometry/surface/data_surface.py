@@ -108,8 +108,9 @@ class DataSurface2D(Surface):
         z = self._spline(x, self._sign * y)
         return self._sign * (z - self._offset)
 
-    def _normals_rel(self, x, y):
-        """Exact spline-derivative normals."""
+    def _normals_rel(self, x, y, sag=None):
+        """Exact spline-derivative normals (no evaluation of the sag, so
+        ``sag`` is not used)."""
         if self._1D:
             rq = torch.sqrt(x * x + y * y)
             mr = self._sign * self._spline.deriv(rq)

@@ -100,7 +100,9 @@ class FunctionSurface2D(Surface):
             x = -x
         return x, y
 
-    def _normals_rel(self, x, y):
+    def _normals_rel(self, x, y, sag=None):
+        """Normals from ``deriv_func``, or the exact normal of the sag
+        (``sag``, ``_sag`` by default, as :meth:`Surface._normals_rel`)."""
         if self.deriv_func is not None:
             xr, yr = self._rot_args(x, y)
             if self._1D:
@@ -118,7 +120,7 @@ class FunctionSurface2D(Surface):
                 dx, dy = dx * c - dy * s, dx * s + dy * c
             n = torch.stack([-dx, -dy, torch.ones_like(dx)], dim=-1)
             return n / torch.linalg.norm(n, dim=-1, keepdim=True)
-        return geom.normal_numeric(self._sag, x, y)
+        return geom.normal_numeric(sag or self._sag, x, y)
 
     def _mask_rel(self, x, y):
         """The user's ``mask_func`` at relative tensor coordinates (True

@@ -138,10 +138,12 @@ class Surface(BaseClass):
         n[~m] = [0., 0., 1.]
         return n
 
-    def _normals_rel(self, x, y):
+    def _normals_rel(self, x, y, sag=None):
         """Tensor normals in relative coords; default: the exact normal of
-        ``_sag`` by forward-mode differentiation (``geom.normal_numeric``)."""
-        return geom.normal_numeric(self._sag, x, y)
+        the sag by forward-mode differentiation (``geom.normal_numeric``).
+        ``sag`` is ``_sag`` as the caller evaluates it (the trace counts
+        its evaluations), ``_sag`` itself by default."""
+        return geom.normal_numeric(sag or self._sag, x, y)
 
     # ------------------------------------------------------------------
     # hit finding (host API; the trace engine uses the compiled kernels)

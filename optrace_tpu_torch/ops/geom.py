@@ -321,6 +321,21 @@ def hit_newton(sag_fn, o, s, z_min_rel, z_max_rel, iters: int = 40):
     return t, valid, ill
 
 
+def generic_sag(sag_fn):
+    """``sag_fn`` as the generic step of a function or data surface
+    evaluates it: each call adds the rays it evaluates to
+    ``generic_sag.sag_evals``. The counter counts like the kernel wrappers'
+    launch counters: a replayed CUDA graph adds its capture's count
+    (``parallel/graph.py``)."""
+    def counted(x, y):
+        generic_sag.sag_evals += x.numel()
+        return sag_fn(x, y)
+    return counted
+
+
+generic_sag.sag_evals = 0
+
+
 ADVANCE_STANDOFF = 1.0   # mm of free flight kept before the surface
 
 

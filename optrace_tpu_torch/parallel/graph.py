@@ -41,9 +41,10 @@ What a graph freezes, and how the step answers for it:
   ``cuda_fuse_planar``), which an eager step reads at every call: when they
   change, the graph is dropped and the next calls warm up and capture
   anew.
-- *The launch counters* of the kernel wrappers are Python counters. The
-  capture's increments are taken back and every replay adds them, so a
-  counter counts the launches that ran.
+- *The launch counters* of the kernel wrappers, and the generic step's
+  count of sag evaluations (``geom.generic_sag.sag_evals``), are Python
+  counters. The capture's increments are taken back and every replay adds
+  them, so a counter counts the launches and evaluations that ran.
 - *The outputs* of a graph are its own buffers, which the next replay
   overwrites: a replay returns copies.
 - *Memory.* A graph keeps a private pool of device memory for its outputs
@@ -61,17 +62,18 @@ import contextlib
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from ..ops import cuda_binning, cuda_run, cuda_sampling, cuda_trace
+from ..ops import cuda_binning, cuda_run, cuda_sampling, cuda_trace, geom
 from ..utils.global_options import global_options
 from ..utils.tracing import span
 
-_COUNTED = ("launches", "variant_launches", "slot_launches", "kind_launches")
+_COUNTED = ("launches", "variant_launches", "slot_launches", "kind_launches", "sag_evals")
 
 
 def _wrappers():
-    """The kernel wrappers whose attributes count launches."""
+    """The kernel wrappers whose attributes count launches, and the generic
+    step's sag, whose attribute counts evaluations."""
     return (cuda_run.conic_run, cuda_binning.bin_xyzw_cuda, cuda_trace.conic_step,
-            cuda_sampling.srgb_wavelengths)
+            cuda_sampling.srgb_wavelengths, geom.generic_sag)
 
 
 def launch_counts() -> dict:

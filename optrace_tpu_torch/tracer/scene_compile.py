@@ -156,14 +156,17 @@ def _generic_fns(surf: Surface, params_np: dict, device, dtype) -> SurfaceFns:
     """The ``generic`` kind of a function or data surface: the bracketed
     numeric solve (``geom.hit_newton``) over the object's tensor sag, its
     normals (a ``deriv_func``, the spline's derivatives or
-    ``geom.normal_numeric``) and its mask with the user's ``mask_func``."""
+    ``geom.normal_numeric``) and its mask with the user's ``mask_func``.
+    The sag is evaluated through ``geom.generic_sag``, which counts its
+    evaluations."""
     user_mask = getattr(surf, "mask_func", None) is not None
+    sag = geom.generic_sag(surf._sag)
 
     def gen_hit(params, o, s):
-        return geom.hit_newton(surf._sag, o, s, params["z_min_rel"], params["z_max_rel"])
+        return geom.hit_newton(sag, o, s, params["z_min_rel"], params["z_max_rel"])
 
     def gen_normal(params, x, y):
-        return surf._normals_rel(x, y)
+        return surf._normals_rel(x, y, sag)
 
     def gen_mask(params, x, y):
         m = geom.mask_circle(x, y, params["r"])

@@ -27,6 +27,7 @@ lenses, filters and apertures that bend rays (HURB edge diffraction) are
 single steps of eager tensor operations between the runs.
 """
 
+import contextlib
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -38,7 +39,7 @@ from ..ops import geom
 from ..ops.cuda_run import (conic_run, conic_run_reference, PreparedRun, SectionSlots, section_buffer,
                             ABSORB_KINDS)
 from ..ops.vector import rdot, cross, normalize_safe
-from ..utils.tracing import span
+from ..utils.tracing import device_interval, span
 from .scene_compile import SurfaceFns, host_values
 
 INV_SQRT2 = 1.0 / np.sqrt(2.0)
@@ -134,10 +135,11 @@ def _outline_intersection(p_prev, p_new, s, w, outline):
     return p_out, w_out, torch.count_nonzero(out)
 
 
-def _refract(step: TraceStep, p_new, s, w, wl, pols, hit, no_pol):
-    """Snell + Fresnel at a refracting surface."""
-    params = step.sfns.params
-    n = step.sfns.normal_fn(params, p_new[:, 0], p_new[:, 1])
+def _refract(step: TraceStep, p_new, s, w, wl, pols, hit, no_pol, n=None):
+    """Snell + Fresnel at a refracting surface; ``n``, the normals at
+    ``p_new``, where the caller has them already."""
+    if n is None:
+        n = step.sfns.normal_fn(step.sfns.params, p_new[:, 0], p_new[:, 1])
     with span("trace_bundle.media"):
         n1, n2 = step.n1_fn(wl), step.n2_fn(wl)
     return _refract_core(n, n1, n2, s, w, pols, hit, no_pol)
@@ -792,8 +794,16 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         p_prev = p
         w_prev = w
 
-        with span("trace_bundle.step"):
+        # a function or data surface's hit solve, mask and normals: the
+        # generic step, timed on the device as one interval while a profiler
+        # records (a capture keeps the interval's events as graph nodes)
+        generic = step.sfns.kind == "generic"
+        normals = None
+        with span("trace_bundle.step"), (device_interval("trace_bundle.generic", dev) if generic
+                                         else contextlib.nullcontext()):
             p, hit, ill, _ = _surface_hit(step, p, s, hw)
+            if generic and step.action == "refract":
+                normals = step.sfns.normal_fn(step.sfns.params, p[:, 0], p[:, 1])
         info[ILL_COND] += torch.count_nonzero(ill)
 
         if step.action == "refract":
@@ -803,7 +813,7 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
             w = torch.where(miss, 0.0, w)
             info[ABSORB_MISSING] += torch.count_nonzero(miss)
             with span("trace_bundle.step"):
-                s, w, pols, n_tir = _refract(step, p, s, w, wl, pols, hit, no_pol)
+                s, w, pols, n_tir = _refract(step, p, s, w, wl, pols, hit, no_pol, normals)
             info[TIR] += n_tir
             with span("trace_bundle.media"):
                 n_after = step.n2_fn(wl)
