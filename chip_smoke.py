@@ -41,8 +41,11 @@ kernel route against plain route, five design steps), searches its focus
 with all four methods, convolves images with a PSF preset and with its
 detector image, traces the Arizona eye, traces the double Gauss with a
 data-surface front and the cosine-surface lens of examples/cosine_surfaces.py
-(the generic step unrolled between runs; the card against the CPU on 10⁵
-rays), loads a synthetic ZEMAX prescription and catalog and traces it,
+(the generic step unrolled between runs, the lens's faces on the generic
+kernel; the card against the CPU on 10⁵ rays), holds the generic kernel
+against its plain version and the eager route (the keratoconic cornea, the
+cosine face, every op code) and the keratoconic eye's captured batch against
+its eager batch, loads a synthetic ZEMAX prescription and catalog and traces it,
 drives ``render_huge(mesh=...)`` over an NCCL process group of one rank
 (against the unsharded render and interrupted and resumed, both bit for
 bit), drives the
@@ -341,11 +344,12 @@ def sections_agree(RT_a, RT_b, label):
 
 
 def reset_launch_counts():
-    from optrace_tpu_torch.ops import cuda_run, cuda_binning, cuda_sampling, cuda_trace
+    from optrace_tpu_torch.ops import cuda_run, cuda_binning, cuda_generic, cuda_sampling, cuda_trace
     cuda_run.reset_launch_counts()
     cuda_binning.reset_launch_counts()
     cuda_trace.reset_launch_counts()
     cuda_sampling.reset_launch_counts()
+    cuda_generic.reset_launch_counts()
 
 
 class PlainRunCounter:
@@ -1408,17 +1412,179 @@ def _eager_entry(RT, n):
     return dict(graphed=entry.graphed, reason=entry.eager_reason)
 
 
+def _all_ops_sag(x, y):
+    """A sag that takes every op code of the generic kernel (ops/sag_program.py:OPS)."""
+    import torch
+    r2 = x * x + y * y
+    a = torch.where(r2 > 0.5, torch.sqrt(r2 + 1.0), torch.cos(x) * 0.5)
+    b = torch.exp(-r2 / 4.0) + torch.log(r2 + 2.0) / 3.0 - torch.sin(y) ** 2
+    c = torch.tan(x * 0.1) + torch.abs(y) ** 3 + (r2 + 1.0) ** -2 + (r2 + 1.0) ** -0.5 \
+        + (r2 + 1.0) ** 1.5 + 1.0 / (r2 + 3.0) + x ** 0 + y ** 1
+    m = (((x >= 0.1) | (y < -0.2)) & ~(x == y)) ^ ((r2 <= 4.0) & (y != 0.0))
+    return 0.01 * (a + b + c + torch.where(m, x / (r2 + 1.0), -x))
+
+
+def generic_hit_surfaces(ot):
+    """The surfaces of the generic kernel's rows: the keratoconic cornea of
+    the cell keratoconus-psf (the Arizona eye's anterior cornea less Tan et
+    al.'s case 7 cone at "far", as examples_torch/keratoconus.py builds it),
+    the front face of examples/cosine_surfaces.py's lens, and a surface whose
+    sag and mask take every op code of the kernel."""
+    from examples_torch.cosine_surfaces import lens_surfaces
+    from examples_torch.keratoconus import deformed_front
+    cornea = ot.presets.geometry.arizona_eye(adaptation=1000 / 670, pupil=3.0).lenses[0].front
+    ops = ot.FunctionSurface2D(r=3.0, func=_all_ops_sag,
+                               mask_func=lambda x, y: (x * x + y * y < 6.0) | (y > 2.0))
+    return {"keratoconus": deformed_front(cornea, 7), "cosine": lens_surfaces()[0], "ops": ops}
+
+
+def generic_rays(sfns, n, seed):
+    """n rays in a surface's frame on the card: 2 mm before its extent, across
+    its aperture and a tenth beyond, directions within 0.1 of the axis, a
+    tenth of them dead (as the CPU tests draw them)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, zmin = float(sfns.params["r"]), float(sfns.params["z_min_rel"])
+    xy = (torch.rand((n, 2), generator=g, device="cuda") * 2 - 1) * 1.1 * r
+    p = torch.cat([xy, torch.full((n, 1), zmin - 2.0, device="cuda")], dim=1)
+    d = torch.cat([(torch.rand((n, 2), generator=g, device="cuda") - 0.5) * 0.2,
+                   torch.ones((n, 1), device="cuda")], dim=1)
+    return p, d / d.norm(dim=1, keepdim=True), torch.rand(n, generator=g, device="cuda") > 0.1
+
+
+def check_generic_hit(ot, label, surf, n=N_RAYS, seed=31):
+    """The generic kernel against its plain version on the card at n rays:
+    the solve's t and valid, ill, the hit, the new positions and the broken
+    rays bit for bit, the normals within NORMAL_ULPS units of 2⁻²³; the same
+    against the eager route (``trace_core._surface_hit`` and the surface's
+    ``normal_fn``); the kernel's device time alone, its bound, the plain
+    version's and the eager route's times."""
+    import torch
+    from optrace_tpu_torch.ops import cuda_generic
+    from optrace_tpu_torch.tracer import trace_core
+    from optrace_tpu_torch.tracer.scene_compile import compile_surface
+    sfns = compile_surface(surf, "cuda")
+    gen, params = sfns.generic, sfns.params
+    assert gen.sag is not None and gen.device is not None, f"{label}: the sag did not record"
+    p, s, hw = generic_rays(sfns, n, seed)
+    step = trace_core.TraceStep(sfns, "refract")
+
+    def kernel():
+        return cuda_generic.generic_hit(gen, params, p, s, hw, normals=True)
+
+    def plain():
+        return cuda_generic.generic_hit_reference(gen, params, p, s, hw, normals=True)
+
+    def eager():
+        q, hit, ill, _ = trace_core._surface_hit(step, p, s, hw)
+        return q, hit, ill, sfns.normal_fn(params, q[:, 0], q[:, 1])
+
+    with torch.no_grad():
+        before = cuda_generic.generic_hit.launches
+        out = cuda_generic.generic_hit(gen, params, p, s, hw, normals=True, debug=True)
+        ref, eag = plain(), eager()
+        torch.cuda.synchronize()
+        assert cuda_generic.generic_hit.launches == before + 1
+        errs = {k: float((out[k] - ref[k]).abs().nan_to_num(0.0).max()) for k in ("p", "t")}
+        differing = {k: _differing_bits(out[k], ref[k]) for k in ("p", "t")}
+        flags = {k: int((out[k] != ref[k]).sum()) for k in ("hit", "ill", "valid", "broken")}
+        flags["n_broken"] = int(out["n_broken"]) - int(ref["n_broken"])
+        eager_diff = dict(p=_differing_bits(out["p"], eag[0]), hit=int((out["hit"] != eag[1]).sum()),
+                          ill=int((out["ill"] != eag[2]).sum()))
+        ulp = 2.0 ** -23
+        ulps_plain = float((out["normals"] - ref["normals"]).abs().max()) / ulp
+        ulps_eager = float((out["normals"] - eag[3]).abs().max()) / ulp
+        assert not any(differing.values()) and not any(flags.values()), (label, differing, flags, errs)
+        assert not any(eager_diff.values()), (label, eager_diff)
+        assert ulps_plain <= cuda_generic.NORMAL_ULPS and ulps_eager <= cuda_generic.NORMAL_ULPS, \
+            (label, ulps_plain, ulps_eager)
+        n_hit = int(out["hit"].sum())
+        assert 0 < n_hit < n, n_hit
+        ms = device_kernel_ms(kernel, "generic_hit_kernel", calls=10)
+        plain_ms, eager_ms = cuda_ms(plain, reps=3), cuda_ms(eager, reps=3)
+        eager_launches = device_launches(eager)
+    # the work a ray: 42 evaluations of the program and one with two
+    # tangents (three times its operations), 40 bracket updates of about 15
+    # operations, about 60 for the advance, the clamp, the mask and the normal
+    n_ops = len(gen.sag.code)
+    ops = n * (42 * n_ops + 3 * n_ops + 40 * 15 + 60)
+    nbytes = n * (28 + 40)          # p, s, hw in; p, hit, ill, normals out
+    bound_ms = max(ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    return dict(name=label, N=n, program_ops=n_ops, program_consts=len(gen.sag.consts),
+                mask_ops=len(gen.mask.code) if gen.mask is not None else 0, max_abs_err=max(errs.values()),
+                bits_differing=differing, flags_differing=flags, against_eager=eager_diff,
+                normals_ulps=ulps_plain, normals_ulps_against_eager=ulps_eager,
+                normal_ulps_allowed=cuda_generic.NORMAL_ULPS, hits=n_hit, launches=1, ms=ms,
+                plain_ms=plain_ms, eager_ms=eager_ms, eager_device_launches=eager_launches,
+                ops=ops, bytes=nbytes, bound_ms=bound_ms,
+                bound_by="operations" if ops / F32_OPS_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
+                library_ms=None)
+
+
+def keratoconus_graph_check(ot, n=N_RAYS, batches=(0, 1, 2, 3)):
+    """The cell keratoconus-psf's render batch (benchmark/configs), its generic
+    step on the kernel, captured into a CUDA graph and replayed, against the
+    eager batch bit for bit (image and INFOS), one replay under
+    ``torch.cuda.set_sync_debug_mode("error")``; launches of the kernel and
+    of the device a batch."""
+    import torch
+    from benchmark import reference_keratoconus, scene_keratoconus
+    from optrace_tpu_torch.ops import cuda_generic
+    from optrace_tpu_torch.parallel import render as render_mod
+    from optrace_tpu_torch.parallel.checkpoint import batch_generator
+    from optrace_tpu_torch.parallel.graph import CapturedStep
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
+                           "keratoconic_eye.json")) as f:
+        cfg = json.load(f)
+    RT = scene_keratoconus.build(ot, cfg, 3, no_pol=True)
+    grid = [dict(extent=reference_keratoconus.spot_extent(cfg, 3, 0.1, "cuda"), Nx=NX, Ny=NY)]
+    step, _ = ot.make_fused_render_multi(RT, n, grid)
+    eager, _ = render_mod._eager_fused_render(RT, n, grid)
+    assert isinstance(step, CapturedStep)
+    gen = lambda b: batch_generator(0, b, ot.resolve_device())     # noqa: E731
+    rows = []
+    with torch.no_grad():
+        step(gen(100))                      # the warm-up: eager
+        torch.cuda.synchronize()
+        k0, e0 = cuda_generic.generic_hit.launches, cuda_generic.generic_hit.eager_steps
+        for b in batches:
+            (img_g,), infos_g = step(gen(b))
+            (img_e,), infos_e = eager(gen(b))
+            torch.cuda.synchronize()
+            same = _same_bits(img_g, img_e) and _same_bits(infos_g, infos_e)
+            rows.append(dict(batch=b, bit_equal=same, power=float(img_g[..., 3].sum())))
+            assert same and float(img_g[..., 3].sum()) > 0, rows[-1]
+        # every batch, replayed or eager, one launch of the kernel and no eager step
+        assert cuda_generic.generic_hit.launches - k0 == 2 * len(batches), cuda_generic.generic_hit.launches
+        assert cuda_generic.generic_hit.eager_steps == e0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(gen(501))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        replay_launches = device_launches(lambda: step(gen(502)))
+        eager_launches = device_launches(lambda: eager(gen(503)))
+        replay_ms = cuda_ms(lambda: step(gen(504)), reps=5)
+    return dict(batches=rows, sync_debug_replay="ok", device_launches_replay=replay_launches,
+                device_launches_eager=eager_launches, replay_ms=replay_ms)
+
+
 def generic_phase(ot, smi, n=N_RAYS):
     """Function and data surfaces on the card at 10⁶ rays. (i) The double
     Gauss with a data-surface front: Raytracer.trace (kernel 1 on the runs of
-    5 and 8 around the unrolled generic step), detector_image (kernel 2), one
-    fused-render batch; the generic step's launches and device time beside the
-    whole trace's; the card's sections against the CPU's on 10⁵ rays. (ii)
-    The cosine lens of examples/cosine_surfaces.py: trace, image, the same
-    CPU check."""
+    5 and 8 around the unrolled generic step, which stays eager: a spline),
+    detector_image (kernel 2), one fused-render batch; the generic step's
+    launches and device time beside the whole trace's; the card's sections
+    against the CPU's on 10⁵ rays. (ii) The cosine lens of
+    examples/cosine_surfaces.py, both faces on the generic kernel: trace,
+    image, the same CPU check. (iii) The generic kernel against its plain
+    version (rows generic_hit@keratoconus, @cosine, @ops) and the keratoconic
+    eye's captured batch against its eager batch."""
     import torch
     from optrace_tpu_torch.ops.cuda_run import conic_run
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
+    from optrace_tpu_torch.ops.cuda_generic import generic_hit
     from optrace_tpu_torch.image import render_image as render_image_mod
     from optrace_tpu_torch.parallel import render as render_mod
     from optrace_tpu_torch.tracer.trace_core import trace_bundle, ILL_COND
@@ -1437,6 +1603,8 @@ def generic_phase(ot, smi, n=N_RAYS):
     t_trace = time.perf_counter() - t0
     assert conic_run.launches == 2 and conic_run.variant_launches == {(False, True): 2}, \
         conic_run.variant_launches
+    # the data surface's spline does not record: its step keeps the eager route
+    assert (generic_hit.launches, generic_hit.eager_steps) == (0, 1), generic_hit.eager_steps
     launches["conic_run[nopol,store]@generic"] = conic_run.launches
     ill = RT._msgs[ILL_COND].tolist()
     graphed_dg = _eager_entry(RT, n)
@@ -1517,7 +1685,9 @@ def generic_phase(ot, smi, n=N_RAYS):
     t0 = time.perf_counter()
     RT.trace(n)
     t_trace = time.perf_counter() - t0
-    assert conic_run.launches == 0
+    # both cosine faces take the generic kernel
+    assert conic_run.launches == 0 and (generic_hit.launches, generic_hit.eager_steps) == (2, 0)
+    launches["generic_hit@cosine"] = generic_hit.launches
     ill = RT._msgs[ILL_COND].tolist()
     assert ill[1] > 0 and ill[2] > 0, ill
     graphed_cos = _eager_entry(RT, n)
@@ -1547,6 +1717,15 @@ def generic_phase(ot, smi, n=N_RAYS):
                               generic_step=dict(device_launches=cos_launches, ms=cos_ms,
                                                 device_busy_ms=cos_busy),
                               card_vs_cpu=card_vs_cpu(ot, RT, n, seed=25))
+    del RT, img
+
+    # (iii) the generic kernel alone against its plain version, and the
+    # keratoconic eye's batch captured against its eager batch
+    for label, surf in generic_hit_surfaces(ot).items():
+        rows[f"generic_hit@{label}"] = check_generic_hit(ot, f"generic_hit@{label}", surf, n)
+    launches["generic_hit@ops"] = 1
+    out["keratoconus_graph"] = keratoconus_graph_check(ot, n)
+    launches["generic_hit@keratoconus"] = 2 * len(out["keratoconus_graph"]["batches"])
     emit(dict(phase="generic", gpu=smi, N=n, scenes=out,
               tolerances=dict(p_rtol=SEC_P_RTOL, p_atol=SEC_P_ATOL, p_atol_throw=SEC_P_ATOL_THROW,
                               w_rtol=SEC_W_RTOL, w_atol=SEC_W_ATOL, flips_per_20k=SEC_FLIPS_PER_20K),
@@ -4211,7 +4390,8 @@ def main():
     sources = {"bin_xyzw": ("bin_xyzw.cu", "optrace_tpu/ops/pallas_binning.py:83"),
                "conic_run": ("conic_run.cu", "optrace_tpu/ops/pallas_run.py:431"),
                "conic_step": ("conic_step.cu", "optrace_tpu/ops/pallas_trace.py:152"),
-               "srgb_wavelengths": ("srgb_wavelengths.cu", "none: the port's own kernel")}
+               "srgb_wavelengths": ("srgb_wavelengths.cu", "none: the port's own kernel"),
+               "generic_hit": ("generic_hit.cu", "none: XLA's fusion in the JAX package")}
     kernels = []
     for label, r in rows.items():
         n_launch = launches.get(label, 0)

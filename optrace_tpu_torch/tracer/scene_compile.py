@@ -21,7 +21,10 @@ hold the surface object, so it has no plain description:
 :func:`surface_fns` builds every kind but that one, and a generic step comes
 from :func:`compile_surface` only. Its parameters carry the position, the
 radius and the extent, which the frame chain and a design render move; the
-user function or the spline stays in the closure.
+user function or the spline stays in the closure. Its ``generic`` field
+holds what the hand-written kernel of the step needs
+(:class:`optrace_tpu_torch.ops.cuda_generic.GenericSurface`: the sag and the
+user mask recorded as programs of elementwise operations).
 """
 
 from typing import Callable, NamedTuple
@@ -29,9 +32,9 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..ops import geom
+from ..ops import cuda_generic, geom
 from ..geometry.surface import (Surface, CircularSurface, RingSurface, ConicSurface,
-                                AsphericSurface, TiltedSurface,
+                                AsphericSurface, TiltedSurface, FunctionSurface2D,
                                 RectangularSurface, SlitSurface)
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
@@ -52,6 +55,7 @@ class SurfaceFns(NamedTuple):
     is_flat: bool
     host: dict = None     # params as numpy values (same rounding)
     host_of: dict = None  # the params dict that ``host`` was read from
+    generic: "cuda_generic.GenericSurface" = None   # the generic kind's kernel programs
 
 
 def _mask_circle_fn(params, x, y):
@@ -145,11 +149,20 @@ def surface_fns(kind: str, params_np: dict, device, dtype=torch.float32) -> Surf
     return _make_fns(params_np, device, dtype, hit_fn, normal_fn, mask_fn, kind, is_flat)
 
 
-def _make_fns(params_np, device, dtype, hit_fn, normal_fn, mask_fn, kind, is_flat):
+def _make_fns(params_np, device, dtype, hit_fn, normal_fn, mask_fn, kind, is_flat, generic=None):
     npdt = _NP_DTYPES[dtype]
     host = {k: np.asarray(v, dtype=npdt) for k, v in params_np.items()}
     params = {k: torch.tensor(v, device=device) for k, v in host.items()}
-    return SurfaceFns(params, hit_fn, normal_fn, mask_fn, kind, is_flat, host, params)
+    return SurfaceFns(params, hit_fn, normal_fn, mask_fn, kind, is_flat, host, params, generic)
+
+
+def _sag_normals(surf: Surface) -> bool:
+    """Whether the surface's normals are the exact normals of its sag
+    (``geom.normal_numeric``), which the generic kernel takes by forward
+    mode through the recorded sag: no ``deriv_func``, no spline."""
+    own = type(surf)._normals_rel
+    return own is Surface._normals_rel or (own is FunctionSurface2D._normals_rel
+                                           and getattr(surf, "deriv_func", None) is None)
 
 
 def _generic_fns(surf: Surface, params_np: dict, device, dtype) -> SurfaceFns:
@@ -158,9 +171,13 @@ def _generic_fns(surf: Surface, params_np: dict, device, dtype) -> SurfaceFns:
     normals (a ``deriv_func``, the spline's derivatives or
     ``geom.normal_numeric``) and its mask with the user's ``mask_func``.
     The sag is evaluated through ``geom.generic_sag``, which counts its
-    evaluations."""
+    evaluations. The sag and the mask are also recorded for the kernel of
+    the step (``generic``, :func:`cuda_generic.generic_surface`)."""
     user_mask = getattr(surf, "mask_func", None) is not None
     sag = geom.generic_sag(surf._sag)
+    gen = cuda_generic.generic_surface(
+        surf._sag, surf._mask_rel if user_mask else None,
+        None if _sag_normals(surf) else (lambda x, y: surf._normals_rel(x, y, sag)), device, dtype)
 
     def gen_hit(params, o, s):
         return geom.hit_newton(sag, o, s, params["z_min_rel"], params["z_max_rel"])
@@ -172,7 +189,7 @@ def _generic_fns(surf: Surface, params_np: dict, device, dtype) -> SurfaceFns:
         m = geom.mask_circle(x, y, params["r"])
         return m & surf._mask_rel(x, y) if user_mask else m
 
-    return _make_fns(params_np, device, dtype, gen_hit, gen_normal, gen_mask, "generic", False)
+    return _make_fns(params_np, device, dtype, gen_hit, gen_normal, gen_mask, "generic", False, gen)
 
 
 def read_host(params: dict) -> dict:

@@ -24,7 +24,11 @@ refractions on tilted planes and the aperture absorbers between them;
 every kind that the kernel runs, so a run that must take the plain version
 keeps its partition: nothing here re-partitions a run at dispatch. Ideal
 lenses, filters and apertures that bend rays (HURB edge diffraction) are
-single steps of eager tensor operations between the runs.
+single steps of eager tensor operations between the runs. The hit, mask
+and normals of a function surface (the ``generic`` kind) are one launch of
+:func:`optrace_tpu_torch.ops.cuda_generic.generic_hit` where
+:func:`~optrace_tpu_torch.ops.cuda_generic.takes_kernel` says so, else eager
+tensor operations as well (:func:`_generic_step`).
 """
 
 import contextlib
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
-from ..ops import geom
+from ..ops import cuda_generic, geom
 from ..ops.cuda_run import (conic_run, conic_run_reference, PreparedRun, SectionSlots, section_buffer,
                             ABSORB_KINDS)
 from ..ops.vector import rdot, cross, normalize_safe
@@ -88,6 +92,22 @@ def _surface_hit(step: TraceStep, p, s, hw):
     p_new = torch.where(hw[:, None], p_hit, p)
     hit = hit & hw
     return p_new, hit, ill & hw, torch.count_nonzero(broken & hw)
+
+
+def _generic_step(step: TraceStep, p, s, hw):
+    """A function or data surface's hit, mask and, for a refraction, its
+    normals at the new positions: one launch of the generic kernel where it
+    takes the step, else the surface's eager closures (counted on a CUDA
+    device in ``generic_hit.eager_steps``). Returns (p_new, hit, ill,
+    normals or None)."""
+    sf = step.sfns
+    normals = step.action == "refract"
+    if cuda_generic.takes_kernel(sf.generic, sf.params, p, s):
+        return cuda_generic.generic_hit(sf.generic, sf.params, p, s, hw, normals)
+    if cuda_generic._on_card(p):
+        cuda_generic.generic_hit.eager_steps += 1
+    p, hit, ill, _ = _surface_hit(step, p, s, hw)
+    return p, hit, ill, sf.normal_fn(sf.params, p[:, 0], p[:, 1]) if normals else None
 
 
 def _compute_polarization(s, s_, pols, upd, no_pol):
@@ -801,9 +821,10 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         normals = None
         with span("trace_bundle.step"), (device_interval("trace_bundle.generic", dev) if generic
                                          else contextlib.nullcontext()):
-            p, hit, ill, _ = _surface_hit(step, p, s, hw)
-            if generic and step.action == "refract":
-                normals = step.sfns.normal_fn(step.sfns.params, p[:, 0], p[:, 1])
+            if generic:
+                p, hit, ill, normals = _generic_step(step, p, s, hw)
+            else:
+                p, hit, ill, _ = _surface_hit(step, p, s, hw)
         info[ILL_COND] += torch.count_nonzero(ill)
 
         if step.action == "refract":
