@@ -78,24 +78,15 @@ import sys
 import tempfile
 import time
 
+# the card's peaks and the operations of a ray's step (by ops/cuda_run.py:step_tag)
+# and of its binning: one copy, the benchmark's yardstick
+from benchmark.roofline import BIN_OPS_PER_RAY, F32_OPS_PER_S, HBM_BYTES_PER_S, RUN_OPS_PER_RAY_STEP
+
 N_RAYS = 10 ** 6
 NX = NY = 945
 N_BATCHES = 2
 N_BATCHES_FLAG = 4              # batches of each leg of the cuda_fuse_planar measurement
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
-F32_OPS_PER_S = 67e12           # H100 SXM f32 peak outside the tensor cores
-# f32 operations of one step for one ray that is alive when it reaches it, by
-# what the step makes the kernel do (ops/cuda_run.py:step_tag). A flat, conic
-# or tilted refraction: hit solve, clamp, normal, Snell and Fresnel, outline
-# test. An asphere: the same around a bracketed solve of 42 evaluations of the
-# sag (about 22 operations each with two coefficients) and 40 bracket updates
-# (about 15 each). An absorber: advance, plane hit, clamp, mask, outline test.
-RUN_OPS_PER_RAY_STEP = {"conic": 150, "flat": 150, "tilted": 150,
-                        "asphere": 150 + 42 * 22 + 40 * 15,
-                        "absorb:circle": 60, "absorb:ring": 60, "absorb:rect": 60,
-                        "absorb:slit": 60}
 STEP_OPS_PER_RAY = 150          # the single-step kernel: one conic refraction
-BIN_OPS_PER_RAY = 30
 # the binning kernel's launches in one call (csrc/bin_xyzw.cu), as the profiler names them
 BIN_LAUNCHES = ("Memset", "bin_xyzw_count", "bin_xyzw_plan", "bin_xyzw_scatter", "bin_xyzw_sum")
 # the run-to-run spread of the host-bound render (PERF.md §5: 8.8–19.6 ms a
@@ -341,15 +332,6 @@ def sections_agree(RT_a, RT_b, label):
     d = float(np.abs(pa[~flipped] - pb[~flipped]).max())
     assert d <= TOL_P, f"{label}: sections differ by {d}"
     return n_flip, d
-
-
-def reset_launch_counts():
-    from optrace_tpu_torch.ops import cuda_run, cuda_binning, cuda_generic, cuda_sampling, cuda_trace
-    cuda_run.reset_launch_counts()
-    cuda_binning.reset_launch_counts()
-    cuda_trace.reset_launch_counts()
-    cuda_sampling.reset_launch_counts()
-    cuda_generic.reset_launch_counts()
 
 
 class PlainRunCounter:
@@ -737,8 +719,8 @@ class RayCounter:
     the traces that traced them (``traces``): the sections each stored trace
     hands to its storage (``RayStorage.fill``), each call of a fused render
     step with its batch (a graph's replay traces the batch it was captured
-    for), and each call of a design render with its source rays
-    (``diff.trace_bundle``)."""
+    for), and each call of a design render with its traced rays
+    (``diff.detector_hits``)."""
 
     def __enter__(self):
         from optrace_tpu_torch.parallel import render
@@ -746,9 +728,9 @@ class RayCounter:
         from optrace_tpu_torch.tracer.ray_storage import RayStorage
         self.rays = self.traces = 0
         self.patched = [(RayStorage, "fill"), (render, "make_fused_render_multi"),
-                        (diff, "trace_bundle")]
+                        (diff, "detector_hits")]
         self.reals = [getattr(owner, attr) for owner, attr in self.patched]
-        fill, make_render, trace_bundle = self.reals
+        fill, make_render, detector_hits = self.reals
 
         def counted_fill(storage, p, *args, **kw):
             self.rays, self.traces = self.rays + int(p.shape[0]), self.traces + 1
@@ -762,12 +744,12 @@ class RayCounter:
                 return step(gen)
             return counted_step, exts
 
-        def counted_trace_bundle(steps, n0_fn, outline, p, *args, **kw):
+        def counted_detector_hits(sfns, z_min, p, *args, **kw):
             self.rays, self.traces = self.rays + int(p.shape[0]), self.traces + 1
-            return trace_bundle(steps, n0_fn, outline, p, *args, **kw)
+            return detector_hits(sfns, z_min, p, *args, **kw)
 
         for (owner, attr), f in zip(self.patched, (counted_fill, counted_make_render,
-                                                   counted_trace_bundle)):
+                                                   counted_detector_hits)):
             setattr(owner, attr, f)
         return self
 
@@ -982,6 +964,7 @@ def design_phase(ot, smi, n=N_RAYS):
     from optrace_tpu_torch.ops.cuda_run import conic_run
     from optrace_tpu_torch.tracer.diff import make_parameterized_render, spot_loss, steps_with_params
     from optrace_tpu_torch.tracer.trace_core import trace_bundle
+    from optrace_tpu_torch.utils import tracing
     go = ot.global_options
 
     RT = double_gauss_scene(ot, no_pol=True)
@@ -1027,7 +1010,7 @@ def design_phase(ot, smi, n=N_RAYS):
     loss_only(rhos0)
     torch.cuda.synchronize()
     evals = dict(kernel=0, plain=0)         # evaluations by route, for the launch counts
-    reset_launch_counts()
+    tracing.reset_counts()
     with PlainRunCounter() as plain:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1153,12 +1136,13 @@ def focus_phase(ot, smi, n=N_RAYS, subset=FOCUS_SUBSET):
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
     from optrace_tpu_torch.analysis import focus
     from optrace_tpu_torch.image import render_image as render_image_mod
+    from optrace_tpu_torch.utils import tracing
 
     RT = double_gauss_scene(ot, no_pol=True)
     RT.trace(20000)
     RT.focus_search("Irradiance Variance", z_start=float(RT.detectors[0].pos[2]))     # warm-up
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     RT.trace(n)
     t_trace = time.perf_counter() - t0
@@ -1199,7 +1183,7 @@ def focus_phase(ot, smi, n=N_RAYS, subset=FOCUS_SUBSET):
         sweep[method] = d
 
     # the PSF that the convolve phase takes: detector_image of this trace
-    reset_launch_counts()
+    tracing.reset_counts()
     with BinRecorder(render_image_mod) as rec:
         t0 = time.perf_counter()
         psf = RT.detector_image()
@@ -1261,6 +1245,7 @@ def eye_phase(ot, smi, n=N_RAYS):
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
     from optrace_tpu_torch.image import render_image as render_image_mod
     from optrace_tpu_torch.tracer.trace_core import MIN_RUN
+    from optrace_tpu_torch.utils import tracing
     go = ot.global_options
     traced, runs = {}, {}
     for flag in (False, True):
@@ -1270,7 +1255,7 @@ def eye_phase(ot, smi, n=N_RAYS):
             runs[flag] = run_partition(ot, RT)
             RT.trace(20000)
             torch.cuda.synchronize()
-            reset_launch_counts()
+            tracing.reset_counts()
             t0 = time.perf_counter()
             RT.trace(n)
             traced[flag] = (RT, time.perf_counter() - t0, conic_run.launches)
@@ -1287,7 +1272,7 @@ def eye_phase(ot, smi, n=N_RAYS):
     t_focus = time.perf_counter() - t0
     z_f = tma.focal_points[1]
     assert abs(res.x - z_f) < 0.5, (res.x, z_f)
-    reset_launch_counts()
+    tracing.reset_counts()
     with BinRecorder(render_image_mod) as rec:
         t0 = time.perf_counter()
         img = RT.detector_image(projection_method="Equidistant")
@@ -1588,6 +1573,7 @@ def generic_phase(ot, smi, n=N_RAYS):
     from optrace_tpu_torch.image import render_image as render_image_mod
     from optrace_tpu_torch.parallel import render as render_mod
     from optrace_tpu_torch.tracer.trace_core import trace_bundle, ILL_COND
+    from optrace_tpu_torch.utils import tracing
     launches, rows, out = {}, {}, {}
 
     # (i) the data-surface double Gauss
@@ -1597,7 +1583,7 @@ def generic_phase(ot, smi, n=N_RAYS):
     assert runs == [5, 8] and kinds[0] == "generic" and kinds.count("generic") == 1, (runs, kinds)
     RT.trace(20000)
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     RT.trace(n)
     t_trace = time.perf_counter() - t0
@@ -1608,7 +1594,7 @@ def generic_phase(ot, smi, n=N_RAYS):
     launches["conic_run[nopol,store]@generic"] = conic_run.launches
     ill = RT._msgs[ILL_COND].tolist()
     graphed_dg = _eager_entry(RT, n)
-    reset_launch_counts()
+    tracing.reset_counts()
     with BinRecorder(render_image_mod) as rec:
         t0 = time.perf_counter()
         img = RT.detector_image()
@@ -1642,7 +1628,7 @@ def generic_phase(ot, smi, n=N_RAYS):
     with torch.no_grad():
         render(ot.make_generator(100))
         torch.cuda.synchronize()
-        reset_launch_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         with BinRecorder(render_mod) as rec:
             tile = render(ot.make_generator(0))
@@ -1681,7 +1667,7 @@ def generic_phase(ot, smi, n=N_RAYS):
     assert run_partition(ot, RT) == []
     RT.trace(20000)
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     RT.trace(n)
     t_trace = time.perf_counter() - t0
@@ -1691,7 +1677,7 @@ def generic_phase(ot, smi, n=N_RAYS):
     ill = RT._msgs[ILL_COND].tolist()
     assert ill[1] > 0 and ill[2] > 0, ill
     graphed_cos = _eager_entry(RT, n)
-    reset_launch_counts()
+    tracing.reset_counts()
     with BinRecorder(render_image_mod) as rec:
         t0 = time.perf_counter()
         img = RT.detector_image()
@@ -1836,6 +1822,7 @@ def zmx_phase(ot, smi, n=N_RAYS):
     import torch
     from optrace_tpu_torch.ops.cuda_run import conic_run
     from optrace_tpu_torch.tracer.trace_core import trace_bundle
+    from optrace_tpu_torch.utils import tracing
     with tempfile.TemporaryDirectory() as tmp:
         agf, zmx = os.path.join(tmp, "cat.agf"), os.path.join(tmp, "lens.zmx")
         with open(agf, "w") as f:
@@ -1853,7 +1840,7 @@ def zmx_phase(ot, smi, n=N_RAYS):
     assert runs == [4], runs
     RT.trace(20000)
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     RT.trace(n)
     t_trace = time.perf_counter() - t0
@@ -1940,6 +1927,7 @@ def graph_phase(ot, smi, n=N_RAYS):
     from optrace_tpu_torch.parallel.checkpoint import batch_generator
     from optrace_tpu_torch.parallel import graph as graph_mod
     from optrace_tpu_torch.parallel.graph import CapturedStep
+    from optrace_tpu_torch.utils import tracing
 
     cfg = [dict(Nx=NX, Ny=NY)]
     RT = double_gauss_scene(ot, True)
@@ -1953,7 +1941,7 @@ def graph_phase(ot, smi, n=N_RAYS):
         step(gen(100))                      # the warm-up: eager
         torch.cuda.synchronize()
         assert step.graph is None
-        reset_launch_counts()
+        tracing.reset_counts()
         counted = {"graphed": [0, 0], "eager": [0, 0]}
 
         def counting(label, fn, g):
@@ -2142,6 +2130,7 @@ def sharded_phase(ot, smi, n=N_ITERATIVE, batch=N_RAYS):
     from optrace_tpu_torch.ops.cuda_run import conic_run
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
     from optrace_tpu_torch.parallel.checkpoint import RenderCheckpoint
+    from optrace_tpu_torch.utils import tracing
 
     torch.cuda.set_device(0)
     t0 = time.perf_counter()
@@ -2166,7 +2155,7 @@ def sharded_phase(ot, smi, n=N_ITERATIVE, batch=N_RAYS):
 
         # legs sharded, unsharded, unsharded, sharded: the host's spread
         # between calls is as large as the difference sought
-        reset_launch_counts()
+        tracing.reset_counts()
         with AllReduceCounter() as ar:
             sharded, t_s1 = leg(mesh)
         assert conic_run.launches == 2 * n_b and conic_run.variant_launches == {(False, False): 2 * n_b}
@@ -2204,7 +2193,7 @@ def sharded_phase(ot, smi, n=N_ITERATIVE, batch=N_RAYS):
         finally:
             RenderCheckpoint.save = real_save
         assert RenderCheckpoint(ck_path, n_b).done == 2
-        reset_launch_counts()
+        tracing.reset_counts()
         with AllReduceCounter() as ar_r:
             t0 = time.perf_counter()
             resumed = double_gauss_scene(ot, True).render_huge(n, **kw)
@@ -2313,6 +2302,7 @@ def gui_phase(ot, smi, n=N_RAYS, n_command=GUI_COMMAND_RAYS):
     from optrace_tpu_torch.ops.cuda_run import conic_run
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
     from optrace_tpu_torch.image import render_image as render_image_mod
+    from optrace_tpu_torch.utils import tracing
 
     drawing, undo = drawing_backend()
     try:
@@ -2336,7 +2326,7 @@ def gui_phase(ot, smi, n=N_RAYS, n_command=GUI_COMMAND_RAYS):
             own["bin_xyzw"] += bin_xyzw_cuda.launches - b0
             return out
 
-        reset_launch_counts()
+        tracing.reset_counts()
         action("init_scene", gui.init_scene)
         assert conic_run.launches == 2 and conic_run.variant_launches == {(True, True): 2}
         assert RT.rays.N == n and gui.ray_selection.sum() == gui.rays_visible
@@ -2440,6 +2430,7 @@ def examples_phase(ot, smi):
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
     from optrace_tpu_torch.parallel import render as render_mod
     from examples_torch.common import check_results
+    from optrace_tpu_torch.utils import tracing
 
     names = example_names()
     assert len(names) == 22, names
@@ -2463,7 +2454,7 @@ def examples_phase(ot, smi):
                     torch.cuda.synchronize()
                     base = torch.cuda.memory_allocated()    # what the earlier phases still hold
                     torch.cuda.reset_peak_memory_stats()
-                    reset_launch_counts()
+                    tracing.reset_counts()
                     with RunRecorder() as rec_run, BinRecorder(render_mod) as rec_bin, \
                             RayCounter() as counter:
                         t0 = time.perf_counter()
@@ -2776,6 +2767,7 @@ def docs_phase(ot, smi):
     from optrace_tpu_torch.image import render_image as render_image_mod
     from optrace_tpu_torch.parallel import render as render_mod
     from optrace_tpu_torch.tracer import diff as diff_mod
+    from optrace_tpu_torch.utils import tracing
 
     pages = [(os.path.basename(p), docs_blocks(p)) for p in docs_pages()]
     pages = [(page, blocks) for page, blocks in pages if blocks]
@@ -2794,7 +2786,7 @@ def docs_phase(ot, smi):
                 torch.cuda.synchronize()
                 base = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
-                reset_launch_counts()
+                tracing.reset_counts()
                 with kept_global_options(ot.global_options), group, BinRecorder(render_image_mod) as b_image, \
                         BinRecorder(render_mod) as b_render, BinRecorder(diff_mod) as b_diff:
                     t0 = time.perf_counter()
@@ -2987,6 +2979,7 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
     from optrace_tpu_torch.tracer import trace_core
     from optrace_tpu_torch.tracer.raytracer import MAX_GRAPHED_TRACES, TRACE_CAPTURE_CALL
     from optrace_tpu_torch.tracer.trace_core import trace_bundle
+    from optrace_tpu_torch.utils import tracing
     launches, out = {}, []
     scenes = {"double_gauss": double_gauss_scene, "stack57": synthetic_stack_scene}
     for name, no_pol in TRACE_SCENES:
@@ -2997,7 +2990,7 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         RTt.trace(n)                            # a miss: steps, runs and samplers of N are built
         t_miss = time.perf_counter() - t0
@@ -3033,7 +3026,7 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
         torch.cuda.reset_peak_memory_stats()
         t_replay = [_timed_trace(RTt, n) for _ in range(TRACE_REPLAYS)]
         replay_peak = torch.cuda.max_memory_allocated() - base
-        reset_launch_counts()
+        tracing.reset_counts()
         seed = RTt._seed_counter
         RTt.trace(n)                            # a replay, counted
         assert conic_run.variant_launches == {(not no_pol, True): len(stored_runs)}, conic_run.variant_launches
@@ -3164,7 +3157,7 @@ def trace_phase(ot, smi, dg_runs, n=N_RAYS):
     RTp = synthetic_stack_scene(ot, no_pol=False)
     RTp.trace(20000)
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset_counts()
     RTp.trace(n)
     assert conic_run.variant_launches == {(True, True): 1} and conic_run.slot_launches == 1
     launches["conic_run[pol,store,slots]@stack56"] = conic_run.slot_launches
@@ -3321,12 +3314,13 @@ def read_path_phase(ot, smi, dg_runs, n=N_RAYS):
     from optrace_tpu_torch.ops.cuda_run import conic_run
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
     from optrace_tpu_torch.image import render_image as render_image_mod
+    from optrace_tpu_torch.utils import tracing
     RT = double_gauss_scene(ot, no_pol=True)
     RT.trace(n)
     RT.detector_image().get("sRGB (Absolute RI)", 945)      # warm-up
     modes = ot.RenderImage.image_modes
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset_counts()
     with BinRecorder(render_image_mod) as rec, ColourDevices() as colour:
         t0 = time.perf_counter()
         RT.trace(n)
@@ -3489,6 +3483,7 @@ def main():
     from optrace_tpu_torch.parallel import render as render_mod
     from optrace_tpu_torch.image import render_image as render_image_mod
     from optrace_tpu_torch.tracer.trace_core import trace_bundle, _partition_runs
+    from optrace_tpu_torch.utils import tracing
     go = ot.global_options
     go.show_progress_bar = False
     go.show_warnings = False
@@ -3500,7 +3495,7 @@ def main():
         RTd = scene(ot, no_pol)
         RTd.trace(20000)                        # warm-up at a small size
         torch.cuda.synchronize()
-        reset_launch_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         RTd.trace(n)
         return RTd, time.perf_counter() - t0
@@ -3512,7 +3507,7 @@ def main():
         with torch.no_grad():
             render_d(ot.make_generator(100))
             torch.cuda.synchronize()
-            reset_launch_counts()
+            tracing.reset_counts()
             img_d = render_d(ot.make_generator(0))
             torch.cuda.synchronize()
         assert bool(torch.isfinite(img_d).all())
@@ -3618,7 +3613,7 @@ def main():
     for label, sl in (("bin_xyzw@two_hot", slice(0, N_RAYS)), ("bin_xyzw@tail", slice(1, 1 + n_tail))):
         hits = torch.stack([xs[sl], ys[sl], torch.zeros_like(xs[sl])], dim=-1)
         rimg_b = ot.RenderImage(extent=ext_b)
-        reset_launch_counts()
+        tracing.reset_counts()
         with BinRecorder(render_image_mod) as rec:
             rimg_b.render(hits, ws[sl], wls[sl])
         assert bin_xyzw_cuda.launches == 1 and len(rec.calls) == 1
@@ -3676,7 +3671,7 @@ def main():
         render(ot.make_generator(100))
         render(ot.make_generator(101))
         torch.cuda.synchronize()
-        reset_launch_counts()
+        tracing.reset_counts()
         t0 = time.perf_counter()
         for b in range(N_BATCHES):
             batch = render(ot.make_generator(b))
@@ -3755,7 +3750,7 @@ def main():
     RTa.trace(20000)                            # warm-up at a small size
     RTa.detector_image()
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     RTa.trace(N_RAYS)
     t_trace = time.perf_counter() - t0
@@ -3841,7 +3836,7 @@ def main():
     r.lock()
     RTa._last_trace_snapshot = RTa.tracing_snapshot()
     assert r._dev is None
-    reset_launch_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     rimg_h = RTa.detector_image()
     t_image_host = time.perf_counter() - t0
@@ -3851,7 +3846,7 @@ def main():
     d_host = float(np.abs(rimg_h.data - data).max())
     assert d_host <= TOL_BIN * data.max(), (d_host, data.max())
     RTa.trace(N_RAYS)                           # a trace of its own: the tensors are back
-    reset_launch_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     rimg2 = RTa.detector_image()
     t_image2 = time.perf_counter() - t0
@@ -3889,7 +3884,7 @@ def main():
 
     sections_out = dict(detector_image=image_against_f64(rimg2, ph_h[:, 0], ph_h[:, 1], w_h, wl_h,
                                                           "detector_image"))
-    reset_launch_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     dspec = RTa.detector_spectrum()
     t_dspec = time.perf_counter() - t0
@@ -3973,7 +3968,7 @@ def main():
                               "conic", "conic", "conic", "conic"], kinds
         assert run_partition(ot, RTat) == [4, 4]
         RTat.trace(20000)
-        reset_launch_counts()
+        tracing.reset_counts()
         RTat.trace(N_RAYS // 4)
         assert conic_run.launches == 2 and conic_run.kind_launches.get("asphere") == 1 \
             and "tilted" not in conic_run.kind_launches, conic_run.kind_launches
@@ -4028,7 +4023,7 @@ def main():
             with torch.no_grad():
                 render(ot.make_generator(100))
                 torch.cuda.synchronize()
-                reset_launch_counts()
+                tracing.reset_counts()
                 acc = torch.zeros((NY, NX, 4), dtype=torch.float32, device=dev)
                 batch_ms = []
                 for b in range(N_BATCHES_FLAG):
@@ -4079,7 +4074,7 @@ def main():
     del images, RT, RTt
 
     # ---- 8. the single-step kernel's probe --------------------------------
-    reset_launch_counts()
+    tracing.reset_counts()
     step_res = check_conic_step()
     launches["conic_step"] = step_res["launches"]
     emit(dict(phase="conic_step_probe", gpu=smi, **step_res))
@@ -4096,7 +4091,7 @@ def main():
         ["filter"] + ["refract"] * 6 + ["absorb"] + ["refract"] * 8 + ["ideal", "absorb"]
     RTs.trace(20000)                            # warm-up at a small size
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset_counts()
     with RunRecorder() as rec_s:
         t0 = time.perf_counter()
         RTs.trace(N_RAYS)
@@ -4168,7 +4163,7 @@ def main():
     assert RTi.ITER_RAYS_STEP == N_RAYS
     RTi.trace(20000)                            # warm-up; the render's first batch draws seed 2
     torch.cuda.synchronize()
-    reset_launch_counts()
+    tracing.reset_counts()
     with BinRecorder(render_mod) as rec_i:
         t0 = time.perf_counter()
         imgs_i = RTi.iterative_render(N_ITERATIVE, pos=positions)
@@ -4237,7 +4232,7 @@ def main():
     ck_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     ck_path = os.path.join(ck_dir, "huge.ckpt.npz")
     kw_h = dict(batch_size=N_RAYS, checkpoint_every=1)
-    reset_launch_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     full = double_gauss_scene(ot, True).render_huge(N_ITERATIVE, **kw_h)
     torch.cuda.synchronize()
@@ -4267,7 +4262,7 @@ def main():
         RenderCheckpoint.save = real_save
     on_disk = RenderCheckpoint(ck_path, n_b)
     assert on_disk.done == 2 and list(on_disk.remaining()) == [2, 3]
-    reset_launch_counts()
+    tracing.reset_counts()
     t0 = time.perf_counter()
     resumed = double_gauss_scene(ot, True).render_huge(N_ITERATIVE, checkpoint_path=ck_path, **kw_h)
     t_resume = time.perf_counter() - t0
@@ -4284,7 +4279,7 @@ def main():
     # spherical detector: one fused batch against detector_image of a stored
     # trace of the same rays (the generator of batch 0 seeds the trace)
     ext_sph = [-0.05, 0.05, -0.05, 0.05]
-    reset_launch_counts()
+    tracing.reset_counts()
     sph = double_gauss_spherical_scene(ot).render_huge(N_RAYS, batch_size=N_RAYS, extent=ext_sph,
                                                       projection_method="Equidistant")
     assert conic_run.launches == 2 and bin_xyzw_cuda.launches == 1

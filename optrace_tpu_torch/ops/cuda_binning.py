@@ -19,6 +19,7 @@ import torch
 
 from .binning import bin_xyzw as bin_xyzw_reference
 from ..color.observers import observer_table, observer_bound
+from ..utils.tracing import counted
 
 # the kernel's compile-time constants (csrc/bin_xyzw.cu: BIN_TILE, BIN_CHUNK),
 # checked against the library when it is loaded
@@ -136,7 +137,4 @@ def bin_xyzw_cuda(px, py, w, wl, Nx: int, Ny: int, extent, out=None):
 
 
 bin_xyzw_cuda.launches = 0          # kernel launches since the last reset
-
-
-def reset_launch_counts() -> None:
-    bin_xyzw_cuda.launches = 0
+counted(bin_xyzw_cuda, "launches")

@@ -30,6 +30,9 @@ import torch.autograd.forward_ad as fwAD
 
 from . import geom, sag_program
 from .sag_program import Program
+from ..utils.device import tracks_grad
+from ..utils.global_options import global_options
+from ..utils.tracing import counted
 
 ITERS = 40          # geom.hit_newton's steps, as the generic kind runs it
 # the bracket's margin, C_EPS, N_EPS and the standoff as f32 numbers, as the
@@ -93,13 +96,11 @@ def refusal(gen: Optional[GenericSurface], params: dict, p, s) -> Optional[str]:
     kernel: kernel 1's rule (f32 state on a CUDA device that needs no
     derivative, ``global_options.cuda_trace`` on), no forward-mode level
     active, and a sag that recorded. Decided from the input alone."""
-    from ..tracer.trace_core import _tracks_grad
-    from ..utils.global_options import global_options
     if p.dtype != torch.float32 or s.dtype != torch.float32:
         return "the rays are not f32"
     if gen is None or gen.sag is None:
         return "the sag did not record"
-    if any(_tracks_grad(t) for t in (p, s, *params.values())):
+    if any(tracks_grad(t) for t in (p, s, *params.values())):
         return "a derivative flows through the step"
     if fwAD._current_level >= 0:
         return "a forward-mode level is active"
@@ -244,8 +245,4 @@ def generic_hit(gen: GenericSurface, params: dict, p, s, hw, normals: bool = Fal
 
 generic_hit.launches = 0        # kernel launches since the last reset
 generic_hit.eager_steps = 0     # generic steps on a CUDA device that took the eager route
-
-
-def reset_launch_counts() -> None:
-    generic_hit.launches = 0
-    generic_hit.eager_steps = 0
+counted(generic_hit, "launches", "eager_steps")

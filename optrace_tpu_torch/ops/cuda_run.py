@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .geom import N_EPS, C_EPS, ADVANCE_STANDOFF
+from ..utils.tracing import counted
 
 INV_SQRT2 = float(np.sqrt(0.5))
 INF = float("inf")
@@ -610,8 +611,8 @@ class PreparedRun:
 
     The constants of a run depend on the compiled steps, the frame chain
     and the outline, so a prepared run is good for as long as the step list
-    it was made from is the scene: whoever builds new steps
-    (``Raytracer._build_steps``, ``make_fused_render``) prepares anew
+    it was made from is the scene: a compiled scene
+    (``Raytracer.trace_program``) holds new steps and prepares anew
     (``tracer/trace_core.py:RunPlans``)."""
 
     def __init__(self, steps, med_idx):
@@ -767,10 +768,4 @@ conic_run.launches = 0              # kernel launches since the last reset
 conic_run.variant_launches = {}     # the same, by (with_pol, store)
 conic_run.slot_launches = 0         # the same, of those that wrote into SectionSlots
 conic_run.kind_launches = {}        # launches that held a step of each step_tag
-
-
-def reset_launch_counts() -> None:
-    conic_run.launches = 0
-    conic_run.variant_launches = {}
-    conic_run.slot_launches = 0
-    conic_run.kind_launches = {}
+counted(conic_run, "launches", "variant_launches", "slot_launches", "kind_launches")

@@ -21,6 +21,7 @@ import torch
 
 from ..color import srgb
 from ..utils.global_options import global_options
+from ..utils.tracing import counted
 
 
 def primary_lut(device) -> tuple:
@@ -110,7 +111,4 @@ def srgb_wavelengths(P, choice, u, pix, lut):
 
 
 srgb_wavelengths.launches = 0       # kernel launches since the last reset
-
-
-def reset_launch_counts() -> None:
-    srgb_wavelengths.launches = 0
+counted(srgb_wavelengths, "launches")

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from . import cuda_run
+from ..utils.tracing import counted
 
 
 def _consts(rho, k, z_min_rel, z_max_rel, r_ap) -> dict:
@@ -93,7 +94,4 @@ def conic_step(p, s, w, n1, n2, *, rho, k, z_min_rel, z_max_rel, r_ap):
 
 
 conic_step.launches = 0             # kernel launches since the last reset
-
-
-def reset_launch_counts() -> None:
-    conic_step.launches = 0
+counted(conic_step, "launches")

@@ -19,6 +19,8 @@ function and data surfaces) by forward-mode differentiation.
 
 import torch
 
+from ..utils.tracing import counted
+
 C_EPS = 1e-6    #: hit precision in mm
 N_EPS = 1e-10   #: numerical epsilon
 INF = float("inf")
@@ -327,13 +329,14 @@ def generic_sag(sag_fn):
     ``generic_sag.sag_evals``. The counter counts like the kernel wrappers'
     launch counters: a replayed CUDA graph adds its capture's count
     (``parallel/graph.py``)."""
-    def counted(x, y):
+    def sag(x, y):
         generic_sag.sag_evals += x.numel()
         return sag_fn(x, y)
-    return counted
+    return sag
 
 
 generic_sag.sag_evals = 0
+counted(generic_sag, "sag_evals")
 
 
 ADVANCE_STANDOFF = 1.0   # mm of free flight kept before the surface

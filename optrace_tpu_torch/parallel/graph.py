@@ -41,10 +41,10 @@ What a graph freezes, and how the step answers for it:
   ``cuda_fuse_planar``), which an eager step reads at every call: when they
   change, the graph is dropped and the next calls warm up and capture
   anew.
-- *The launch counters* of the kernel wrappers, the generic step's count
-  of sag evaluations (``geom.generic_sag.sag_evals``) and of its steps that
-  took the eager route (``cuda_generic.generic_hit.eager_steps``), are
-  Python counters. The capture's increments are taken back and every replay adds
+- *The counters* that modules register with ``utils/tracing.py``
+  (:func:`~optrace_tpu_torch.utils.tracing.counted`: the kernel wrappers'
+  launches, the generic step's sag evaluations and eager steps) are Python
+  counters. The capture's increments are taken back and every replay adds
   them, so a counter counts the launches and evaluations that ran.
 - *The outputs* of a graph are its own buffers, which the next replay
   overwrites: a replay returns copies.
@@ -61,52 +61,10 @@ step in its place.
 import contextlib
 
 import torch
-import torch.autograd.forward_ad as fwAD
 
-from ..ops import cuda_binning, cuda_generic, cuda_run, cuda_sampling, cuda_trace, geom
+from ..utils import tracing
+from ..utils.device import tracks_grad
 from ..utils.global_options import global_options
-from ..utils.tracing import span
-
-_COUNTED = ("launches", "variant_launches", "slot_launches", "kind_launches", "sag_evals",
-            "eager_steps")
-
-
-def _wrappers():
-    """The kernel wrappers whose attributes count launches (the generic
-    step's kernel also its steps that took the eager route), and the generic
-    step's sag, whose attribute counts evaluations."""
-    return (cuda_run.conic_run, cuda_binning.bin_xyzw_cuda, cuda_trace.conic_step,
-            cuda_sampling.srgb_wavelengths, cuda_generic.generic_hit, geom.generic_sag)
-
-
-def launch_counts() -> dict:
-    """A copy of every launch counter: {(wrapper, attribute): int or dict}."""
-    return {(f, a): (dict(getattr(f, a)) if isinstance(getattr(f, a), dict) else getattr(f, a))
-            for f in _wrappers() for a in _COUNTED if hasattr(f, a)}
-
-
-def _set_counts(counts: dict) -> None:
-    for (f, a), v in counts.items():
-        setattr(f, a, dict(v) if isinstance(v, dict) else v)
-
-
-def _count_delta(after: dict, before: dict) -> dict:
-    out = {}
-    for k, v in after.items():
-        b = before.get(k, {} if isinstance(v, dict) else 0)
-        out[k] = {q: n - b.get(q, 0) for q, n in v.items()} if isinstance(v, dict) else v - b
-    return out
-
-
-def _add_counts(delta: dict) -> None:
-    for (f, a), v in delta.items():
-        if isinstance(v, dict):
-            cur = getattr(f, a)
-            for q, n in v.items():
-                if n:
-                    cur[q] = cur.get(q, 0) + n
-        else:
-            setattr(f, a, getattr(f, a) + v)
 
 
 def _tensors(tree):
@@ -128,11 +86,6 @@ def _clone(tree):
 def _switches() -> tuple:
     """The kernel switches that a graph freezes."""
     return (global_options.cuda_trace, global_options.cuda_binning, global_options.cuda_fuse_planar)
-
-
-def _carries_derivative(tree) -> bool:
-    return any((t.requires_grad and torch.is_grad_enabled())
-               or fwAD.unpack_dual(t).tangent is not None for t in _tensors(tree))
 
 
 class CapturedStep:
@@ -187,15 +140,15 @@ class CapturedStep:
             self._reset()
             self._switches = switches
         if self.graph is not None:
-            with span("graph.replay"):
+            with tracing.span("graph.replay"):
                 return self._replay(gen)
         if self._calls >= self.eager_calls and not self._eager_only:
-            with span("graph.capture"):     # with its first replay
+            with tracing.span("graph.capture"):     # with its first replay
                 return self._capture(gen)
         self._calls += 1
-        with span("graph.eager"):
+        with tracing.span("graph.eager"):
             out = self.fn(gen)
-        self._eager_only = self._eager_only or _carries_derivative(out)
+        self._eager_only = self._eager_only or any(tracks_grad(t) for t in _tensors(out))
         return out
 
     def _capture(self, gen):
@@ -206,7 +159,7 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph()
         own = torch.Generator(device=self.device)
         graph.register_generator_state(own)
-        before = launch_counts()
+        before = tracing.counts()
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
@@ -227,14 +180,14 @@ class CapturedStep:
                     raise
                 graph.capture_end()
         except Exception as err:
-            _set_counts(before)
+            tracing.set_counts(before)
             raise RuntimeError(f"the capture of the {self.name} into a CUDA graph failed "
                                f"({type(err).__name__}: {err}); on a CUDA device it "
                                "does not run eagerly instead") from err
         cur.wait_stream(side)
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.captured_launches = _count_delta(launch_counts(), before)
-        _set_counts(before)
+        self.captured_launches = tracing.count_delta(tracing.counts(), before)
+        tracing.set_counts(before)
         self.graph, self._gen, self._static = graph, own, static
         return self._replay(gen)
 
@@ -244,7 +197,7 @@ class CapturedStep:
         self._gen.set_state(gen.get_state())
         self.graph.replay()
         gen.set_state(self._gen.get_state())
-        _add_counts(self.captured_launches)
+        tracing.add_counts(self.captured_launches)
         return _clone(self._static)
 
 

@@ -26,10 +26,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..geometry import SphericalSurface
-from ..tracer.scene_compile import compile_surface
-from ..tracer.trace_core import trace_bundle, RunPlans
-from ..tracer.detector import (build_segment_mask, init_hit_carry, segment_update,
-                               sphere_projection_xy)
+from ..tracer.detector import init_hit_carry, segment_update, sphere_projection_xy
 from ..ops import binning
 from ..ops.cuda_binning import bin_xyzw_cuda
 from ..utils.device import resolve_device
@@ -51,13 +48,8 @@ def _detector_sink(RT, detector_index: int, projection_method, extent,
     the grid).
     """
     dsurf = RT.detectors[detector_index].surface
-    sfns = compile_surface(dsurf, device)
-    det_zmin = float(dsurf.z_min)
-    seg_mask = build_segment_mask(RT._section_z_bounds(),
-                                  det_zmin, float(dsurf.z_max))
-    if extent is None:
-        extent = dsurf.extent[:4]
-    ext = tuple(float(v) for v in extent)
+    sfns, det_zmin, seg_mask = RT.detector_target(detector_index, device)
+    ext = RT.detector_extent(detector_index, extent)
 
     spherical = isinstance(dsurf, SphericalSurface) and projection_method is not None
     pos = tuple(float(v) for v in dsurf.pos)
@@ -85,16 +77,6 @@ def _detector_sink(RT, detector_index: int, projection_method, extent,
     return sink, finalize, ext, seg_mask
 
 
-def _scene_snapshot(RT):
-    """What a render step built now depends on and reads anew at every eager
-    call: the raytracer's snapshot without its stored rays, and the
-    wavelength range that the sources sample."""
-    snap = RT.tracing_snapshot()
-    del snap["Rays"]
-    snap["WavelengthRange"] = tuple(global_options.wavelength_range)
-    return snap
-
-
 def make_fused_render_multi(RT, N_batch: int, configs: list, device=None, _batches=None):
     """Streaming fused render for several detector views of ONE trace.
 
@@ -116,24 +98,16 @@ def make_fused_render_multi(RT, N_batch: int, configs: list, device=None, _batch
         eager (:func:`.graph.capture`).
     """
     render, exts = _eager_fused_render(RT, N_batch, configs, device)
-    return capture(render, resolve_device(device), lambda: _scene_snapshot(RT), _batches), exts
+    return capture(render, resolve_device(device), RT.trace_program_key, _batches), exts
 
 
 def _eager_fused_render(RT, N_batch: int, configs: list, device=None):
     """:func:`make_fused_render_multi`'s step as eager PyTorch on every
     device: the step that a captured one is compared with."""
     device = resolve_device(device)
-    RT.rays.init(RT.ray_sources, N_batch, len(RT.tracing_surfaces) + 2, RT.no_pol)
-    steps = RT._build_steps(device)
-    plans = RunPlans(steps)
-    # the runs' step tables, the sources' and media's tables: made here or by
-    # the first batch and kept, so that a later batch copies nothing from
-    # the host
-    source_fn = RT._make_source_fn(N_batch, device)
-    outline = tuple(float(v) for v in RT.outline)
-    n0_fn = RT.n0.on_device(device)
-    no_pol, use_hurb = RT.no_pol, RT.use_hurb
-    hurb_factor = float(RT.HURB_FACTOR)
+    # its tables are made here, the runs' at the first batch: a later batch
+    # copies nothing from the host
+    program = RT.trace_program(N_batch, device)
 
     sinks, finalizers, exts = [], [], []
     for cfg in configs:
@@ -156,11 +130,9 @@ def _eager_fused_render(RT, N_batch: int, configs: list, device=None):
         # while a profiler records, a capture keeps the interval's events as
         # nodes of the graph, and each replay times the sampling on the card
         with device_interval("render.sampling", device):
-            p, s, pols, w, wl = source_fn(gen)
-        out = trace_bundle(steps, n0_fn, outline, p, s, pols, w, wl,
-                           no_pol, use_hurb, gen=gen,
-                           sinks=[(fn, init_hit_carry(N_batch, device), m) for fn, m in sinks],
-                           store_sections=False, hurb_factor=hurb_factor, plans=plans)
+            rays = program.sample(gen)
+        out = program.trace(rays, gen, sinks=[(fn, init_hit_carry(N_batch, device), m) for fn, m in sinks],
+                            store_sections=False)
         imgs = [fin(carry, out["wl"]) for fin, carry in zip(finalizers, out["sinks"])]
         return imgs, out["infos"]
 
@@ -255,7 +227,7 @@ def make_sharded_render(RT, N_batch: int, mesh: DeviceMesh = None, detector_inde
 
     # on a CUDA device the division is part of the captured graph; the
     # all-reduce stays outside it, an eager collective after the replay
-    shard = capture(shard, RT.device, lambda: _scene_snapshot(RT), _batches)
+    shard = capture(shard, RT.device, RT.trace_program_key, _batches)
 
     def step(batch_index: int, seed: int = 0):
         tile = shard(batch_generator(seed, batch_index, RT.device, rank))

@@ -16,9 +16,8 @@ equal seeds give equal rays, which is what a finite difference needs.
 
 import torch
 
-from .detector import detector_hits, build_segment_mask
-from .scene_compile import compile_surface, with_params
-from .trace_core import trace_bundle
+from .detector import detector_hits
+from .scene_compile import with_params
 from ..ops import binning
 from ..ops.cuda_binning import bin_xyzw_cuda
 from ..utils.device import make_generator
@@ -60,30 +59,15 @@ def make_parameterized_render(RT, N: int, detector_index: int = 0,
 
     :return: (render, params0) with params0 the current scene parameters
     """
-    device = RT.device
-    RT.rays.init(RT.ray_sources, N, len(RT.tracing_surfaces) + 2, RT.no_pol)
-    steps = RT._build_steps()
-    source_fn = RT._make_source_fn(N)
-    outline = tuple(float(v) for v in RT.outline)
-    n0_fn = RT.n0
-    no_pol, use_hurb = RT.no_pol, RT.use_hurb
-    hurb_factor = float(RT.HURB_FACTOR)
+    program = RT.trace_program(N)
+    sfns, det_zmin, seg_mask = RT.detector_target(detector_index)
+    ext = RT.detector_extent(detector_index, extent)
 
-    dsurf = RT.detectors[detector_index].surface
-    sfns = compile_surface(dsurf, device)
-    det_zmin = float(dsurf.z_min)
-    # only segments whose section z-ranges can hold the detector are tested
-    seg_mask = build_segment_mask(RT._section_z_bounds(), det_zmin, float(dsurf.z_max))
-    if extent is None:
-        extent = dsurf.extent[:4]
-    ext = tuple(float(v) for v in extent)
-
-    params0 = [s.sfns.params for s in steps]
+    params0 = [s.sfns.params for s in program.steps]
 
     def trace_rays(params_list, p, s, pols, w, wl, gen=None):
-        steps_p = steps_with_params(steps, params_list)
-        out = trace_bundle(steps_p, n0_fn, outline, p, s, pols, w, wl, no_pol, use_hurb,
-                           gen=gen, hurb_factor=hurb_factor)
+        out = program.trace((p, s, pols, w, wl), gen,
+                            steps=steps_with_params(program.steps, params_list))
         ph, wsel, is_hit, _ = detector_hits(sfns, det_zmin, out["p"], out["w"],
                                             segment_mask=seg_mask)
         wm = torch.where(is_hit, wsel, 0.0)
@@ -95,8 +79,8 @@ def make_parameterized_render(RT, N: int, detector_index: int = 0,
         return binning.bin_xyzw(x, y, wm, out["wl"], Nx, Ny, ext)
 
     def render(params_list, seed: int):
-        gen = make_generator(seed, device)
-        return trace_rays(params_list, *source_fn(gen), gen=gen)
+        gen = make_generator(seed, RT.device)
+        return trace_rays(params_list, *program.sample(gen), gen=gen)
 
     render.trace_rays = trace_rays
     return render, params0

@@ -25,7 +25,7 @@ sweeps the focus costs there (``analysis/focus.py``).
 
 from collections import OrderedDict, namedtuple
 from enum import IntEnum
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import scipy.optimize
@@ -69,16 +69,15 @@ MAX_GRAPHED_TRACES = 2
 TRACE_CAPTURE_CALL = 6
 
 
-class _TraceEntry(namedtuple("_TraceEntry", "elements sources steps plans source_fn run eager_reason")):
+class _TraceEntry(namedtuple("_TraceEntry", "elements sources program run eager_reason")):
     """What a trace of one scene and ray count needs besides its rays: the
     tracing elements and sources it was built from (kept, so that no object
     the snapshot names by identity can be freed and replaced unnoticed), the
-    steps, their prepared runs, the function that draws the rays, and
-    ``run(gen) -> (p, w, pol, n, wl, infos)``, the whole trace: eager, or on
-    a CUDA device a :class:`CapturedStep` that is captured at the key's
-    :data:`TRACE_CAPTURE_CALL`-th call and replayed after it.
-    ``eager_reason`` says why a trace stays eager (None where it is
-    graphed)."""
+    compiled scene, and ``run(gen) -> (p, w, pol, n, wl, infos)``, the whole
+    trace: eager, or on a CUDA device a :class:`CapturedStep` that is
+    captured at the key's :data:`TRACE_CAPTURE_CALL`-th call and replayed
+    after it. ``eager_reason`` says why a trace stays eager (None where it
+    is graphed)."""
 
     @property
     def graphed(self) -> bool:
@@ -110,6 +109,29 @@ def _eager_reason(steps: list, sources: list) -> str | None:
         if src.orientation == "Function":
             return f"ray source {i} has a user orientation function (orientation='Function')"
     return None
+
+
+class TraceProgram(NamedTuple):
+    """A scene compiled for :func:`~.trace_core.trace_bundle` by
+    :meth:`Raytracer.trace_program`. The stored trace, the fused and sharded
+    render and the design render each trace through one, and so through
+    this module's ``trace_bundle``, the one name every path's trace takes."""
+    steps: list
+    plans: RunPlans
+    sample: Callable            # gen -> the sources' rays (p, s, pols, w, wl)
+    n0_fn: Callable             # the ambient medium, its table on the device
+    outline: tuple
+    no_pol: bool
+    use_hurb: bool
+    hurb_factor: float
+
+    def trace(self, rays, gen, sinks=None, store_sections: bool = True, steps: list = None) -> dict:
+        """The trace of ``rays`` (p, s, pols, w, wl); ``steps`` in place of
+        the program's own (the design render's) take no prepared runs."""
+        own = steps is None
+        return trace_bundle(self.steps if own else steps, self.n0_fn, self.outline, *rays, self.no_pol,
+                            self.use_hurb, gen=gen, sinks=sinks, store_sections=store_sections,
+                            hurb_factor=self.hurb_factor, plans=self.plans if own else None)
 
 
 # what the geometry checks of one scene found: the warnings they raised, in
@@ -422,55 +444,62 @@ class Raytracer(Group):
                                        pos_host=ph(el.front)))
         return steps
 
+    def trace_program_key(self, snap: dict = None) -> tuple:
+        """What a compiled scene (:meth:`trace_program`) depends on besides
+        N and its device: the scene part of the tracing snapshot (``snap``,
+        taken here when not given) and the wavelength range, which the
+        sources' samplers read when they are built. The stored trace keys
+        its cache by it; a render step on the card compares it at every call."""
+        snap = self.tracing_snapshot() if snap is None else snap
+        return self._scene_key(snap) + (tuple(global_options.wavelength_range),)
+
+    def trace_program(self, N: int, device=None, apportion: bool = True) -> TraceProgram:
+        """The scene as it is now compiled for N rays on ``device`` (default:
+        the raytracer's), its tables made there once. With ``apportion`` N is
+        first split among the sources (``rays.init``, unseeded), as a render
+        does; the stored trace splits it with its own seed beforehand."""
+        device = self.device if device is None else torch.device(device)
+        if apportion:
+            self.rays.init(self.ray_sources, N, len(self.tracing_surfaces) + 2, self.no_pol)
+        steps = self._build_steps(device)
+        return TraceProgram(steps, RunPlans(steps), self._make_source_fn(N, device),
+                            self.n0.on_device(device), tuple(float(v) for v in self.outline),
+                            self.no_pol, self.use_hurb, float(self.HURB_FACTOR))
+
     def _trace_entry(self, N: int, snap: dict = None) -> _TraceEntry:
-        """Steps, prepared runs, ray source function and the whole trace of
-        N rays through the scene as it is now: the counterpart of the JAX
-        package's ``_get_trace_fn``, whose ``jax.jit`` the trace's CUDA
-        graph stands for. An entry is kept for each key, the
-        scene part of the tracing snapshot (``snap``, taken here when not
-        given; :meth:`_scene_key`), the rays a source draws
-        (``rays.N_list``, set by ``rays.init``), the device, N and
-        ``global_options.wavelength_range``, in a
+        """The compiled scene and the whole trace of N rays through the
+        scene as it is now: the counterpart of the JAX package's
+        ``_get_trace_fn``, whose ``jax.jit`` the trace's CUDA graph stands
+        for. An entry is kept for each key, :meth:`trace_program_key` (of
+        ``snap``, taken here when not given), the rays a source draws
+        (``rays.N_list``, set by ``rays.init``), the device and N, in a
         least-recently-used cache of :data:`TRACE_CACHE_SIZE` entries
         (:meth:`_cached`; ``clear()`` empties it). An entry also holds the
         element and source objects it was built from, and is built anew
         when another object stands in their place. The entries hold tables
         (kB to MB), never rays, except that of a graphed trace: its
-        graph's pool (:data:`MAX_GRAPHED_TRACES`). The range is in the
-        key because the sources' samplers read it when they are built (a
-        ``"Constant"`` spectrum draws over it, a Gaussian is cut to it, a
-        blackbody, function or histogram spectrum and an RGB image source's
-        primaries are tabulated over it); the media's
-        tables and the geometry do not depend on it. The JAX package's
-        ``_get_trace_fn`` leaves it out and keeps drawing the old range."""
+        graph's pool (:data:`MAX_GRAPHED_TRACES`). The JAX package's
+        ``_get_trace_fn`` leaves the wavelength range out of its key and
+        keeps drawing the old range."""
         elements = self._tracing_elements()[:-1]    # the end absorber follows from the outline
         sources = list(self.ray_sources)
-        snap = self.tracing_snapshot() if snap is None else snap
-        key = self._scene_key(snap) + (tuple(int(n) for n in self.rays.N_list), str(self.device), int(N),
-                                       tuple(global_options.wavelength_range))
+        key = self.trace_program_key(snap) + (tuple(int(n) for n in self.rays.N_list), str(self.device),
+                                              int(N))
 
         def build():
-            steps = self._build_steps()
-            plans, source_fn = RunPlans(steps), self._make_source_fn(N)
-            # the ambient medium with its table on the device, as the steps
-            # hold theirs: a call copies nothing from the host
-            n0_fn = self.n0.on_device(self.device)
-            outline = tuple(float(v) for v in self.outline)
-            no_pol, use_hurb, hurb_factor = self.no_pol, self.use_hurb, float(self.HURB_FACTOR)
+            program = self.trace_program(N, apportion=False)
 
             def trace_fn(gen):
                 with torch.no_grad():
-                    p, s, pols, w, wl = source_fn(gen)
-                    out = trace_bundle(steps, n0_fn, outline, p, s, pols, w, wl, no_pol, use_hurb,
-                                       gen=gen, hurb_factor=hurb_factor, plans=plans)
+                    out = program.trace(program.sample(gen), gen)
                 return out["p"], out["w"], out["pol"], out["n"], out["wl"], out["infos"]
 
-            reason = _eager_reason(steps, sources)
+            reason = _eager_reason(program.steps, sources)
             run = trace_fn if reason else capture(trace_fn, self.device, eager_calls=TRACE_CAPTURE_CALL - 1,
                                                   name="stored trace")
             if reason is None and run is trace_fn:
                 reason = f"a trace on {self.device} runs eagerly (CUDA graphs are for CUDA devices)"
-            return _TraceEntry(elements, sources, steps, plans, source_fn, run, reason)
+            return _TraceEntry(elements, sources, program, run, reason)
         return self._cached(self._trace_cache, key, elements, sources, build, _TraceEntry.drop)
 
     def _bound_graphs(self, entry: _TraceEntry) -> None:
@@ -597,6 +626,22 @@ class Raytracer(Group):
         bounds.append((float(self.outline[5]), float(self.outline[5])))
         return bounds
 
+    def detector_target(self, detector_index: int = 0, device=None, dtype=torch.float32) -> tuple:
+        """``(sfns, z_min, seg_mask)`` of a hit search on a detector: its
+        surface compiled on ``device`` (default: the raytracer's) in
+        ``dtype``, its z_min and the ray sections that can cross it."""
+        dsurf = self.detectors[detector_index].surface
+        device = self.device if device is None else torch.device(device)
+        z_min = float(dsurf.z_min)
+        return (compile_surface(dsurf, device, dtype), z_min,
+                build_segment_mask(self._section_z_bounds(), z_min, float(dsurf.z_max)))
+
+    def detector_extent(self, detector_index: int = 0, extent=None) -> tuple:
+        """``extent`` as four floats; ``None`` is the detector surface's own,
+        the extent of a render that has no stored trace to take one from."""
+        ext = self.detectors[detector_index].surface.extent[:4] if extent is None else extent
+        return tuple(float(v) for v in ext)
+
     # ------------------------------------------------------------------
     # detector hit search over the stored sections
 
@@ -618,15 +663,13 @@ class Raytracer(Group):
             else (0, self.rays.N)
 
         dsurf = self.detectors[detector_index].surface
-        det_zmin = float(dsurf.z_min)
-        seg_mask = build_segment_mask(self._section_z_bounds(), det_zmin, float(dsurf.z_max))
 
         # the hit solve runs in f64 on the raytracer's device (a
         # once-per-image step; the fused streaming render never comes
         # through here and stays f32), and so does the selection of the
         # hits: only the extent and the ill-conditioned count reach the host
         with torch.no_grad():
-            sfns = compile_surface(dsurf, self.device, dtype=torch.float64)
+            sfns, det_zmin, seg_mask = self.detector_target(detector_index, dtype=torch.float64)
             p_all, w_all, wl = self._sections(Ns, Ne)
             ph, w, ish, n_ill = detector_hits(sfns, det_zmin, p_all, w_all, segment_mask=seg_mask)
             del p_all, w_all
@@ -920,14 +963,13 @@ class Raytracer(Group):
             n_batches = max(1, -(-N // batch))
 
             detector = self.detectors[detector_index]
-            dsurf = detector.surface
-            ext = tuple(dsurf.extent[:4]) if extent is None else tuple(extent)
+            ext = self.detector_extent(detector_index, extent)
 
             pname = f": {detector.desc}" if detector.desc != "" else ""
             desc = f"{Detector.abbr}{detector_index}{pname} at z = {detector.pos[2]:.5g} mm"
             img = RenderImage(long_desc=desc, extent=np.asarray(ext, dtype=np.float64),
                               projection=projection_method
-                              if isinstance(dsurf, SphericalSurface) else None)
+                              if isinstance(detector.surface, SphericalSurface) else None)
             img.render(limit=limit, _dont_filter=True, device=self.device)   # fix extent, alloc zeros
             Ny, Nx, _ = img._data.shape
 

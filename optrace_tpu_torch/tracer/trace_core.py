@@ -37,12 +37,12 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.autograd.forward_ad as fwAD
 
 from ..ops import cuda_generic, geom
 from ..ops.cuda_run import (conic_run, conic_run_reference, PreparedRun, SectionSlots, section_buffer,
                             ABSORB_KINDS)
 from ..ops.vector import rdot, cross, normalize_safe
+from ..utils.device import tracks_grad
 from ..utils.tracing import device_interval, span
 from .scene_compile import SurfaceFns, host_values
 
@@ -410,14 +410,6 @@ def _media_rows(steps, run_idxs, amb_fn_at=None):
     return media, pairs
 
 
-def _tracks_grad(t) -> bool:
-    """Whether a derivative flows through ``t``: autograd records it (it
-    requires a gradient and grad mode is on) or it carries a forward-mode
-    tangent."""
-    return (t.requires_grad and torch.is_grad_enabled()) \
-        or fwAD.unpack_dual(t).tangent is not None
-
-
 def _run_needs_plain(steps, idxs, p, s, w, pols, n_tab, no_pol) -> bool:
     """Whether a run must take the plain PyTorch loop although its tensors
     may lie on a CUDA device: the kernel holds f32 state and has no
@@ -435,9 +427,9 @@ def _run_tracks_grad(steps, idxs, p, s, w, pols, n_tab, no_pol) -> bool:
     """Whether a derivative flows through a run: through an operand or a
     surface parameter of one of its steps."""
     operands = [p, s, w, n_tab] + ([] if no_pol else [pols])
-    if any(t is not None and _tracks_grad(t) for t in operands):
+    if any(t is not None and tracks_grad(t) for t in operands):
         return True
-    return any(_tracks_grad(v) for i in idxs for v in steps[i].sfns.params.values())
+    return any(tracks_grad(v) for i in idxs for v in steps[i].sfns.params.values())
 
 
 def _run_steps(steps, idxs, chain, outline64):
@@ -478,7 +470,7 @@ def _pos_residuals(steps, chain):
     for st, (pos_h, _, _) in zip(steps, chain):
         pp = st.sfns.params["pos"]
         out.append(pp - torch.as_tensor(pos_h, dtype=pp.dtype, device=pp.device)
-                   if _tracks_grad(pp) else None)
+                   if tracks_grad(pp) else None)
     return out
 
 
@@ -496,7 +488,7 @@ def _frame_residual(res, i):
 
 def _run_differentiable_steps(steps, idxs, chain, consts, residuals=None):
     """For the gradient path: put the surface parameters that a derivative
-    flows through (:func:`_tracks_grad`) back into the constant dicts as
+    flows through (``tracks_grad``) back into the constant dicts as
     tensors, so that the plain loop differentiates through them. A position
     enters as the residual shift of :func:`_frame_residual` (``dpos``), the
     residual of the step's own vertex for its stored section (``rpos``) and
@@ -509,11 +501,11 @@ def _run_differentiable_steps(steps, idxs, chain, consts, residuals=None):
                           ("z_min", "z_min_rel"), ("z_max", "z_max_rel"),
                           ("ri", "ri"), ("hw", "hw"), ("hh", "hh"), ("hwi", "hwi"),
                           ("hhi", "hhi"), ("angle", "angle")):
-            if name in pr and _tracks_grad(pr[name]):
+            if name in pr and tracks_grad(pr[name]):
                 c[key] = pr[name]
-        if "coeff" in c and _tracks_grad(pr["coeff"]):
+        if "coeff" in c and tracks_grad(pr["coeff"]):
             c["coeff"] = tuple(pr["coeff"][q] for q in range(len(c["coeff"])))
-        if "tn" in c and _tracks_grad(pr["normal"]):
+        if "tn" in c and tracks_grad(pr["normal"]):
             c["tn"] = tuple(pr["normal"][q] for q in range(3))
         shift = _frame_residual(res, i)
         if shift is not None:
@@ -530,9 +522,9 @@ class RunPlans:
     The step table of a run depends on the compiled steps, the frame chain
     and the outline, not on the rays, so it is built once where the runs
     are partitioned and kept here for every later bundle. The rule that
-    makes a prepared run stale: new steps. Whoever builds a step list
-    (``Raytracer._build_steps``, ``make_fused_render``) makes a new
-    ``RunPlans`` with it; :func:`trace_bundle` refuses one that was made
+    makes a prepared run stale: new steps. A compiled scene
+    (``Raytracer.trace_program``) makes a new ``RunPlans`` with its step
+    list; :func:`trace_bundle` refuses one that was made
     for another list. The object holds its step list, so the identity that
     it checks cannot pass to another list while it lives. Within one list a
     plan is keyed by what else its constants depend on: the steps of the
@@ -611,14 +603,14 @@ class _Sections:
     def absolute(self, k, p, off):
         """``p + off``, the absolute positions of section k, written into
         its column where the sections are written in place."""
-        if self.in_place and not (_tracks_grad(p) or _tracks_grad(off)):
+        if self.in_place and not (tracks_grad(p) or tracks_grad(off)):
             self._written_p = torch.add(p, off, out=self.p[:, k])
             return self._written_p
         return p + off
 
     def put(self, k, p, w, pol, n):
         """Section k (its positions as :meth:`absolute` gave them)."""
-        if self.in_place and any(t is not None and _tracks_grad(t) for t in (p, w, pol, n)):
+        if self.in_place and any(t is not None and tracks_grad(t) for t in (p, w, pol, n)):
             self.to_lists()
         if not self.in_place:
             self.p.append(p)
@@ -890,3 +882,4 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
     if store_sections:
         out |= sections.result()
     return out
+

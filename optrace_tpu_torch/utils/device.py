@@ -3,6 +3,7 @@
 only when the caller asks for it."""
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 
 def resolve_device(device=None) -> torch.device:
@@ -23,3 +24,11 @@ def make_generator(seed: int, device=None) -> torch.Generator:
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
     return gen
+
+
+def tracks_grad(t) -> bool:
+    """Whether a derivative flows through ``t``: autograd records it (it
+    requires a gradient and grad mode is on) or it carries a forward-mode
+    tangent: it takes no kernel and no CUDA graph, which have none."""
+    return (t.requires_grad and torch.is_grad_enabled()) \
+        or fwAD.unpack_dual(t).tangent is not None

@@ -1,5 +1,5 @@
-"""Spans and device intervals of the program, recorded only while a
-``torch.profiler`` session records.
+"""Spans, device intervals and counters of the program; the spans and
+intervals are recorded only while a ``torch.profiler`` session records.
 
 - :func:`span` marks a stretch of host work at a layer boundary
   (``"trace.run"``, ``"render_huge.batch"``). While the profiler records, a
@@ -19,6 +19,11 @@ card; a host wait that belongs to the program shows in the span around the
 call that waits. The records stay in memory until :func:`reset`; past
 :data:`MAX_RECORDS` spans are counted as dropped and not kept. Readers:
 :func:`records`, :func:`summary`, :func:`device_ms`, :func:`dropped`.
+
+:func:`counted` registers a module's counters (a kernel wrapper's
+``launches``), which count always; a replayed CUDA graph adds what its
+capture counted (``parallel/graph.py``). Readers: :func:`counts`,
+:func:`reset_counts`.
 """
 
 import threading
@@ -209,3 +214,53 @@ def reset() -> None:
     """Forget the spans, the count of dropped ones and the last interval of
     each name."""
     _rec.reset()
+
+
+# ----------------------------------------------------------------------
+# counters
+
+_counters = []          # (owner, attribute), in the order registered
+
+
+def counted(owner, *names: str) -> None:
+    """Register the attributes ``names`` of ``owner``, each an int or a
+    dict of ints, as counters."""
+    _counters.extend((owner, name) for name in names)
+
+
+def counts() -> dict:
+    """A copy of every counter: ``{(owner, attribute): int or dict}``."""
+    return {(owner, name): (dict(v) if isinstance(v := getattr(owner, name), dict) else v)
+            for owner, name in _counters}
+
+
+def set_counts(values: dict) -> None:
+    """Put the counters back to ``values`` (a :func:`counts`)."""
+    for (owner, name), v in values.items():
+        setattr(owner, name, dict(v) if isinstance(v, dict) else v)
+
+
+def reset_counts() -> None:
+    """Set every counter to zero, a dict counter to an empty dict."""
+    set_counts({k: {} if isinstance(v, dict) else 0 for k, v in counts().items()})
+
+
+def count_delta(after: dict, before: dict) -> dict:
+    """What the counters gained from ``before`` to ``after`` (two :func:`counts`)."""
+    out = {}
+    for k, v in after.items():
+        b = before.get(k, {} if isinstance(v, dict) else 0)
+        out[k] = {q: n - b.get(q, 0) for q, n in v.items()} if isinstance(v, dict) else v - b
+    return out
+
+
+def add_counts(delta: dict) -> None:
+    """Add a :func:`count_delta` to the counters."""
+    for (owner, name), v in delta.items():
+        cur = getattr(owner, name)
+        if not isinstance(v, dict):
+            setattr(owner, name, cur + v)
+            continue
+        for q, n in v.items():
+            if n:
+                cur[q] = cur.get(q, 0) + n

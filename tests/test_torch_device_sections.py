@@ -134,13 +134,13 @@ def test_a_changed_filter_rebuilds_the_steps():
     go = otp.global_options
     with go.no_warnings(), go.no_progress_bar():
         RT.trace(2000)
-        steps, plans = RT._trace_entry(2000)[2:4]
-        assert RT._trace_entry(2000).steps is steps
+        steps, plans = RT._trace_entry(2000).program[:2]
+        assert RT._trace_entry(2000).program.steps is steps
         p_before = RT.detector_image().power()
         RT.filters[0].spectrum = otp.TransmissionSpectrum("Constant", val=0.25)
         with pytest.raises(RuntimeError, match="Please retrace first"):
             RT.detector_image()
-        steps2, plans2 = RT._trace_entry(2000)[2:4]
+        steps2, plans2 = RT._trace_entry(2000).program[:2]
         assert steps2 is not steps and plans2 is not plans
         assert steps2[4].spectrum_fn is RT.filters[0].spectrum
         RT.trace(2000)

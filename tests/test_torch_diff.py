@@ -28,7 +28,7 @@ from optrace_tpu.tracer.scene_compile import compile_surface as jcompile_surface
 
 import optrace_tpu_torch as otp
 from optrace_tpu_torch.ops import binning as tbinning
-from optrace_tpu_torch.tracer import trace_core as ttc
+from optrace_tpu_torch.tracer import raytracer as rt_mod, trace_core as ttc
 from optrace_tpu_torch.tracer.diff import (make_parameterized_render, spot_loss, spot_radius,
                                            steps_with_params)
 from optrace_tpu_torch.tracer.scene_compile import host_values, with_params
@@ -324,3 +324,28 @@ def test_forward_mode_through_a_run_takes_the_plain_loop():
     assert ttc._run_needs_plain(steps, idxs, p, s, w, None, torch.ones((2, 4)), True)
     with torch.no_grad():
         assert not ttc._run_needs_plain(steps, idxs, p, s, w, None, torch.ones((2, 4)), True)
+
+
+def test_design_render_traces_the_compiled_scene_bit_for_bit(monkeypatch):
+    """The design render traces through the raytracer's compiled scene
+    (``Raytracer.trace_program``), whose ambient medium is the index's
+    ``on_device`` form: with a tabulated (Data) ambient index every trace of
+    the render equals, bit for bit, the same trace with the index itself."""
+    RT = _scene(otp)
+    RT.n0 = otp.RefractionIndex("Data", wls=np.linspace(380.0, 780.0, 41),
+                                vals=np.linspace(1.0005, 1.0002, 41))
+    real, same = rt_mod.trace_bundle, []
+
+    def both(steps, n0_fn, *args, **kw):
+        out = real(steps, n0_fn, *args, **kw)
+        ref = real(steps, RT.n0, *args, **kw)
+        same.append(n0_fn is not RT.n0 and all(
+            torch.equal(out[k].view(torch.int32), ref[k].view(torch.int32)) for k in ("p", "w", "n"))
+            and torch.equal(out["infos"], ref["infos"]))
+        return out
+
+    monkeypatch.setattr(rt_mod, "trace_bundle", both)
+    render, params0 = make_parameterized_render(RT, 2048, extent=EXT, Nx=NX, Ny=NX, soft_bin=False)
+    with torch.no_grad():
+        img = render(params0, 4)
+    assert same == [True] and float(img[..., 3].sum()) > 0

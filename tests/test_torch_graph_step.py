@@ -38,6 +38,7 @@ from optrace_tpu_torch.parallel import graph as graph_mod
 from optrace_tpu_torch.parallel import render as render_mod
 from optrace_tpu_torch.parallel.checkpoint import RenderCheckpoint, batch_generator
 from optrace_tpu_torch.parallel.graph import CapturedStep
+from optrace_tpu_torch.utils import tracing
 
 from torch_sharded_ranks import _init, spawn_ranks
 
@@ -137,7 +138,7 @@ def stand_in(monkeypatch):
 def test_captured_step_replays_the_eager_batches(stand_in):
     RT = lens_rt()
     eager, _ = render_mod._eager_fused_render(RT, N, CFG, device="cpu")
-    step = stand_in(eager, lambda: render_mod._scene_snapshot(RT))
+    step = stand_in(eager, RT.trace_program_key)
     outs = []
     for b in range(4):
         ga, gb = batch_generator(9, b, "cpu"), batch_generator(9, b, "cpu")
@@ -162,8 +163,7 @@ def test_replays_count_the_captured_launches(stand_in):
         return [torch.rand(3, generator=gen)], torch.zeros(2)
 
     step = stand_in(fn)
-    cuda_run.reset_launch_counts()
-    cuda_binning.reset_launch_counts()
+    tracing.reset_counts()
     try:
         for b in range(4):
             step(batch_generator(0, b, "cpu"))
@@ -174,14 +174,45 @@ def test_replays_count_the_captured_launches(stand_in):
         assert cuda_run.conic_run.variant_launches[(False, False)] - 2 * replayed == 2 * 4
         assert step.captured_launches[(cuda_binning.bin_xyzw_cuda, "launches")] == 1
     finally:
-        cuda_run.reset_launch_counts()
-        cuda_binning.reset_launch_counts()
+        tracing.reset_counts()
+
+
+def test_a_registered_counter_is_counted_at_every_replay(stand_in):
+    """A wrapper that registers its counters with ``utils/tracing.py`` is
+    counted by a captured step that names no wrapper: every replay adds what
+    its capture counted, an int and a dict alike, and ``reset_counts``
+    zeroes both."""
+    def wrapper():
+        wrapper.launches += 1
+        wrapper.by_kind["a"] = wrapper.by_kind.get("a", 0) + 1
+
+    wrapper.launches, wrapper.by_kind = 0, {}
+    tracing.counted(wrapper, "launches", "by_kind")
+
+    def fn(gen):
+        wrapper()
+        return [torch.rand(3, generator=gen)], torch.zeros(2)
+
+    step = stand_in(fn)
+    try:
+        for b in range(4):
+            step(batch_generator(0, b, "cpu"))
+        # the stand-in's replay runs fn, which counts by itself: take those off
+        replayed = _StandInGraph.replays
+        assert replayed == 3
+        assert wrapper.launches - replayed == 4 and wrapper.by_kind == {"a": 4 + replayed}
+        assert step.captured_launches[(wrapper, "launches")] == 1
+        assert step.captured_launches[(wrapper, "by_kind")] == {"a": 1}
+        tracing.reset_counts()
+        assert wrapper.launches == 0 and wrapper.by_kind == {}
+    finally:
+        tracing._counters[:] = [c for c in tracing._counters if c[0] is not wrapper]
 
 
 def test_changed_scene_is_refused_and_switches_start_over(stand_in):
     RT = lens_rt()
     eager, _ = render_mod._eager_fused_render(RT, N, CFG, device="cpu")
-    step = stand_in(eager, lambda: render_mod._scene_snapshot(RT))
+    step = stand_in(eager, RT.trace_program_key)
     step(batch_generator(0, 0, "cpu"))
     step(batch_generator(0, 1, "cpu"))
     assert step.graph is not None

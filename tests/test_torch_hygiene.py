@@ -1,9 +1,13 @@
 """Hygiene of the port: it imports without JAX and without the JAX package,
 its sources name neither, its entry points refuse to run without a CUDA
 device unless the CPU is asked for, and its kernel wrappers take the plain
-version for CPU tensors only.
+version for CPU tensors only. Its layers stay apart: the renders trace the
+raytracer's compiled scene without building one of their own, the capture
+layer names no kernel module, and the kernel modules import nothing of the
+tracer.
 """
 
+import ast
 import json
 import os
 import pathlib
@@ -115,6 +119,50 @@ def test_sources_name_neither_jax_nor_the_jax_package(path):
     # (file paths in docstrings, ``optrace_tpu/...``, are references only)
     assert not re.search(r"^\s*(import|from)\s+optrace_tpu(\.|\s|$)", text, re.M)
     assert not re.search(r"\boptrace_tpu\.\w", text)
+
+
+def _imported_modules(path) -> list:
+    """Every module a file imports, wherever the import stands, as written
+    (relative ones with their leading dots)."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = "." * node.level + (node.module or "")
+            out += [base] if node.module else [base + a.name for a in node.names]
+    return out
+
+
+@pytest.mark.parametrize("name", ["parallel/render.py", "tracer/diff.py"])
+def test_renders_build_no_scene_of_their_own(name):
+    """The fused and sharded render and the design render trace through
+    ``Raytracer.trace_program`` and take their detector from
+    ``Raytracer.detector_target``: they call none of the raytracer's private
+    methods that compile a scene and read none of its trace settings."""
+    text = (ROOT / "optrace_tpu_torch" / name).read_text()
+    for private in ("_build_steps", "_make_source_fn", "_section_z_bounds"):
+        assert private not in text, private
+    assert not re.search(r"\bRT\.(n0|no_pol|use_hurb|HURB_FACTOR)\b", text)
+
+
+def test_the_capture_layer_imports_no_kernel_module():
+    """``parallel/graph.py`` counts the kernels through ``utils/tracing.py``
+    alone: it imports no module of ``ops``."""
+    mods = _imported_modules(ROOT / "optrace_tpu_torch" / "parallel" / "graph.py")
+    assert mods and not [m for m in mods if m in ("..ops", "optrace_tpu_torch.ops")
+                         or m.startswith(("..ops.", "optrace_tpu_torch.ops."))]
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "optrace_tpu_torch" / "ops").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_kernel_modules_import_nothing_of_the_tracer(path):
+    """The layer of the kernels and their plain versions lies below the
+    tracer: no module of ``ops`` imports one of ``tracer``, and none keeps
+    a launch counter's reset of its own (``utils/tracing.py:reset_counts``)."""
+    mods = _imported_modules(path)
+    assert not [m for m in mods if m.startswith(("..tracer", "optrace_tpu_torch.tracer"))]
+    assert "reset_launch_counts" not in path.read_text()
 
 
 def _cpu_raytracer(**kw):

@@ -235,7 +235,7 @@ def test_the_captured_generic_batch_replays_the_eager_one(stand_in):  # noqa: F8
     counted as those of an eager batch."""
     RT = port_scene(CFG, 3)
     eager, _ = render_mod._eager_fused_render(RT, N_BATCH, GRID, device="cpu")
-    step = stand_in(eager, lambda: render_mod._scene_snapshot(RT))
+    step = stand_in(eager, RT.trace_program_key)
     counts = []
     for b in range(4):
         before = geom.generic_sag.sag_evals

@@ -68,11 +68,11 @@ def test_moving_a_lens_builds_a_new_table(table_calls, quiet):
     RT = _scene()
     RT.trace(2000)
     first = [t.copy() for t in table_calls]
-    steps_before = RT._trace_entry(2000).steps
+    steps_before = RT._trace_entry(2000).program.steps
     lens = RT.lenses[2]
     lens.move_to(lens.pos + np.array([0.0, 0.0, 0.25]))
     RT.trace(2000)
-    assert len(table_calls) == 4 and RT._trace_entry(2000).steps is not steps_before
+    assert len(table_calls) == 4 and RT._trace_entry(2000).program.steps is not steps_before
     second = table_calls[2:]
     # dz (word 2) of the moved lens' front surface and of the surface behind it
     moved = [not np.array_equal(a[:, :6], b[:, :6]) for a, b in zip(first, second)]

@@ -30,11 +30,12 @@ import torch
 
 import optrace_tpu_torch as otp
 from optrace_tpu_torch.color import srgb
-from optrace_tpu_torch.ops import cuda_sampling, sampling
+from optrace_tpu_torch.ops import sampling
 from optrace_tpu_torch.ops.cuda_sampling import (primary_lut, srgb_wavelengths,
                                                  srgb_wavelengths_reference)
 from optrace_tpu_torch.ops.interp import invert_cdf_uniform, uniform_interp
 from optrace_tpu_torch.parallel import graph as graph_mod
+from optrace_tpu_torch.utils import tracing
 
 go = otp.global_options
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -179,10 +180,9 @@ def test_cpu_sampler_of_an_image_source_draws_the_rays_of_the_scan(monkeypatch):
 
 
 def test_the_kernel_wrapper_is_counted_by_captured_steps():
-    assert cuda_sampling.srgb_wavelengths in graph_mod._wrappers()
-    assert (srgb_wavelengths, "launches") in graph_mod.launch_counts()
+    assert (srgb_wavelengths, "launches") in tracing.counts()
     srgb_wavelengths.launches += 3
-    cuda_sampling.reset_launch_counts()
+    tracing.reset_counts()
     assert srgb_wavelengths.launches == 0
 
 

@@ -59,7 +59,11 @@ def test_partition_of_the_double_gauss():
 
 
 class _FakeRT:
-    """What ``_detector_sink`` reads of a raytracer."""
+    """What ``_detector_sink`` reads of a raytracer: its detectors, its
+    section bounds, and through them the port's detector target and extent."""
+    detector_target = otp.Raytracer.detector_target
+    detector_extent = otp.Raytracer.detector_extent
+
     def __init__(self, detectors, bounds):
         self.detectors = detectors
         self._bounds = bounds

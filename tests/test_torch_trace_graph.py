@@ -34,6 +34,7 @@ import torch
 import optrace_tpu_torch as otp
 from optrace_tpu_torch.ops import cuda_run
 from optrace_tpu_torch.parallel import graph as graph_mod
+from optrace_tpu_torch.utils import tracing
 from optrace_tpu_torch.parallel.graph import CapturedStep
 from optrace_tpu_torch.presets.geometry import double_gauss
 from optrace_tpu_torch.tracer import raytracer as rt_mod, trace_core
@@ -101,10 +102,10 @@ def graphed(monkeypatch):
 
     monkeypatch.setattr(CapturedStep, "__call__", call)
     monkeypatch.setattr(trace_core, "conic_run", counted)
-    cuda_run.reset_launch_counts()
+    tracing.reset_counts()
     yield
     _Graph.fail = False
-    cuda_run.reset_launch_counts()
+    tracing.reset_counts()
 
 
 def dg_scene(no_pol):
@@ -171,7 +172,7 @@ def test_replayed_traces_equal_a_fresh_raytracers_eager_trace(graphed, name):
     assert runs == 2
     for call in range(1, K + 2):
         seed = RT._seed_counter
-        cuda_run.reset_launch_counts()
+        tracing.reset_counts()
         trace(RT)
         # kernel 1 counted as often as the eager trace launches it
         assert cuda_run.conic_run.variant_launches == {(not RT.no_pol, True): runs}
@@ -312,8 +313,8 @@ def test_a_failed_capture_raises_with_the_counters_as_they_were(graphed):
         trace(RT)
     step = RT._trace_entry(N).run
     assert step.captures_next
-    before = graph_mod.launch_counts()
+    before = tracing.counts()
     _Graph.fail = True
     with pytest.raises(RuntimeError, match="capture of the stored trace"):
         trace(RT)
-    assert graph_mod.launch_counts() == before and step.graph is None
+    assert tracing.counts() == before and step.graph is None

@@ -216,11 +216,11 @@ def test_a_changed_lens_or_source_misses_and_clear_empties():
     first = RT._trace_entry(1000)
     RT.lenses[0].move_to([0, 0, 0.5])
     moved = RT._trace_entry(1000)
-    assert moved is not first and moved.steps is not first.steps
+    assert moved is not first and moved.program.steps is not first.program.steps
     RT.ray_sources[1].power = 1.5          # another share of the rays, and another source
     RT.rays.init(RT.ray_sources, 1000, RT.rays.Nt, True)
     other = RT._trace_entry(1000)
-    assert other is not moved and other.source_fn is not moved.source_fn
+    assert other is not moved and other.program.sample is not moved.program.sample
     assert len(RT._trace_cache) == 3
     # the same snapshot with another lens object in its place: the entry is rebuilt
     RT.remove(RT.lenses[0])

@@ -235,6 +235,7 @@ def iterative_profile(args, smi):
     import optrace_tpu_torch as ot
     from chip_smoke import double_gauss_scene
     from optrace_tpu_torch.ops import cuda_run, cuda_binning
+    from optrace_tpu_torch.utils import tracing
 
     def scene():
         RT = double_gauss_scene(ot, no_pol=True)
@@ -252,8 +253,7 @@ def iterative_profile(args, smi):
     N = args.batches * args.rays
     RT, pos = scene()
     RT.iterative_render(2 * args.rays, pos=pos)     # builds the kernels, warms up
-    cuda_run.reset_launch_counts()
-    cuda_binning.reset_launch_counts()
+    tracing.reset_counts()
     wall_ms, _ = clock(lambda: RT.iterative_render(N, pos=pos))
     launches_1, launches_2 = cuda_run.conic_run.launches, cuda_binning.bin_xyzw_cuda.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -722,6 +722,7 @@ def design_profile(args, smi):
     import optrace_tpu_torch as ot
     import chip_smoke as cs
     from optrace_tpu_torch.ops import cuda_run
+    from optrace_tpu_torch.utils import tracing
     from optrace_tpu_torch.tracer.diff import make_parameterized_render, spot_loss
 
     RT = cs.double_gauss_scene(ot, no_pol=True)
@@ -746,7 +747,7 @@ def design_profile(args, smi):
     for label, grad in (("value_and_grad", True), ("loss_only", False)):
         evaluate(grad)                       # builds the kernels, warms up
         torch.cuda.synchronize()
-        cuda_run.reset_launch_counts()
+        tracing.reset_counts()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         with cs.PlainRunCounter() as plain:
