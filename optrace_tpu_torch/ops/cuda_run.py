@@ -626,6 +626,7 @@ class PreparedRun:
         self.med_idx = [(int(r1), int(r2)) for r1, r2 in med_idx]
         self.rows = (min(min(p) for p in self.med_idx), max(max(p) for p in self.med_idx))
         self.tags = frozenset(step_tag(c) for c in steps)
+        self.refractions = sum(_action(c) == "refract" for c in steps)
         # a run of flat and conic refractions alone takes the instantiation
         # of the kernel that holds no other step kind (fewer registers)
         self.all_kinds = not self.tags <= {"conic", "flat"}
@@ -745,6 +746,7 @@ def conic_run(p, s, w, n_tab, med_idx, steps, pol=None, store=True, plan=None, o
     if rc != 0:
         raise RuntimeError(f"conic_run kernel launch failed with CUDA error {rc}")
     conic_run.launches += 1
+    conic_run.refractions += plan.refractions
     variant = (pol is not None, bool(store))
     conic_run.variant_launches[variant] = conic_run.variant_launches.get(variant, 0) + 1
     if out is not None:
@@ -768,4 +770,5 @@ conic_run.launches = 0              # kernel launches since the last reset
 conic_run.variant_launches = {}     # the same, by (with_pol, store)
 conic_run.slot_launches = 0         # the same, of those that wrote into SectionSlots
 conic_run.kind_launches = {}        # launches that held a step of each step_tag
-counted(conic_run, "launches", "variant_launches", "slot_launches", "kind_launches")
+conic_run.refractions = 0           # the refraction steps of those launches
+counted(conic_run, "launches", "variant_launches", "slot_launches", "kind_launches", "refractions")

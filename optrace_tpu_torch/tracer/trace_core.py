@@ -20,9 +20,11 @@ kernel on a CUDA device, its plain PyTorch version on the CPU, in f64 and
 when a gradient is needed. A run holds refractions on flat discs, conics
 and even aspheres, and with ``global_options.cuda_fuse_planar`` also
 refractions on tilted planes and the aperture absorbers between them;
-:func:`_run_step` is the one predicate that decides. The plain version runs
-every kind that the kernel runs, so a run that must take the plain version
-keeps its partition: nothing here re-partitions a run at dispatch. Ideal
+:func:`_run_step` is the one predicate that decides what a run may hold,
+and :func:`_shortest_run` how long a run must be: one step where the kernel
+takes the runs, the JAX package's ``MIN_RUN`` elsewhere. The plain version
+runs every kind that the kernel runs, so a run that must take the plain
+version keeps its partition: nothing here re-partitions a run at dispatch. Ideal
 lenses, filters and apertures that bend rays (HURB edge diffraction) are
 single steps of eager tensor operations between the runs. The hit, mask
 and normals of a function surface (the ``generic`` kind) are one launch of
@@ -43,7 +45,7 @@ from ..ops.cuda_run import (conic_run, conic_run_reference, PreparedRun, Section
                             ABSORB_KINDS)
 from ..ops.vector import rdot, cross, normalize_safe
 from ..utils.device import tracks_grad
-from ..utils.tracing import device_interval, span
+from ..utils.tracing import counted, device_interval, span
 from .scene_compile import SurfaceFns, host_values
 
 INV_SQRT2 = 1.0 / np.sqrt(2.0)
@@ -283,7 +285,8 @@ def _hurb(step: TraceStep, normals, p_new, s, w, wl, n_amb, pols, bend_candidate
 # steps unless cuda_fuse_planar asks for them, and steps consumed by a
 # streaming sink stay unrolled; real systems are dominated by conic runs.
 
-MIN_RUN = 4     # shortest run worth a launch of its own
+MIN_RUN = 4     # the JAX package's shortest run, kept where the runs take the plain loop
+RUN_KINDS = ("conic", "circle", "flat", "asphere")     # refractions that always join a run
 
 
 def _normalize_sinks(sinks):
@@ -328,7 +331,7 @@ def _run_step(st: TraceStep, use_hurb: bool = False) -> bool:
     from ..utils.global_options import global_options
     kind = st.sfns.kind
     if st.action == "refract":
-        if kind in ("conic", "circle", "flat", "asphere"):
+        if kind in RUN_KINDS:
             return True
         return kind == "tilted" and global_options.cuda_fuse_planar
     if st.action == "absorb":
@@ -337,9 +340,26 @@ def _run_step(st: TraceStep, use_hurb: bool = False) -> bool:
     return False
 
 
-def _partition_runs(steps, sink_masks, use_hurb: bool = False):
+def _shortest_run(steps, p, s, w, pols, wl, no_pol) -> int:
+    """The fewest refractions a run holds, decided once a bundle from the
+    state that it starts with. Where the kernel takes every run (f32 state
+    on a CUDA device, ``cuda_trace`` on, no derivative through the state,
+    the wavelengths or the parameters of any step: :func:`_run_needs_plain`
+    over the whole list), even a run of one refraction is one launch in
+    place of the hundreds of eager launches of its unrolled step: 1.
+    Elsewhere the runs take the plain loop, and the steps of a short run
+    stay unrolled as the JAX package traces them: ``MIN_RUN``. A derivative
+    that only a medium's or a filter's own function brings in is not seen
+    here; a short run then takes the plain loop, which computes the same."""
+    if p.device.type != "cuda" or _run_needs_plain(steps, range(len(steps)), p, s, w, pols, wl, no_pol):
+        return MIN_RUN
+    return 1
+
+
+def _partition_runs(steps, sink_masks, use_hurb: bool = False, min_run: int = MIN_RUN):
     """Split the step list into per-step segments and runs
-    (("step", [i]) / ("run", [i..j]) entries). A step whose segment a sink
+    (("step", [i]) / ("run", [i..j]) entries) of at least ``min_run``
+    refractions (:func:`_shortest_run`). A step whose segment a sink
     consumes is never part of a run. Absorbers earn their place only
     INSIDE a run, where they join two groups of refractions into one
     launch; at the edges of a run they are trimmed back out."""
@@ -363,7 +383,7 @@ def _partition_runs(steps, sink_masks, use_hurb: bool = False):
             tail = []
             while idxs and steps[idxs[-1]].action == "absorb":
                 tail.append(("step", [idxs.pop()]))
-            if len(idxs) >= MIN_RUN:
+            if len(idxs) >= min_run:
                 runs.append(("run", idxs))
             else:
                 runs.extend(("step", [k]) for k in idxs)
@@ -751,7 +771,8 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
     # f32 position rounding stays O(eps·(gap+aperture)) instead of
     # O(eps·|z_absolute|) — see TraceStep.pos_host
     chain = _frame_chain(steps, np_dtype)
-    runs = _partition_runs(steps, [m for _, _, m in sink_list], use_hurb)
+    runs = _partition_runs(steps, [m for _, _, m in sink_list], use_hurb,
+                           _shortest_run(steps, p, s, w, pols, wl, no_pol))
     residuals = _pos_residuals(steps, chain)
     if plans is None:
         plans = RunPlans(steps)
@@ -810,6 +831,8 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         # generic step, timed on the device as one interval while a profiler
         # records (a capture keeps the interval's events as graph nodes)
         generic = step.sfns.kind == "generic"
+        if dev.type == "cuda" and step.action == "refract" and step.sfns.kind in RUN_KINDS:
+            trace_bundle.unrolled_refractions += 1
         normals = None
         with span("trace_bundle.step"), (device_interval("trace_bundle.generic", dev) if generic
                                          else contextlib.nullcontext()):
@@ -883,3 +906,6 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         out |= sections.result()
     return out
 
+
+trace_bundle.unrolled_refractions = 0   # refractions of a run's kinds that a CUDA device took unrolled
+counted(trace_bundle, "unrolled_refractions")

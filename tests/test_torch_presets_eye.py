@@ -19,6 +19,7 @@ from optrace_tpu.presets import geometry as jgeo
 import optrace_tpu_torch as otp
 from optrace_tpu_torch.presets import geometry as tgeo
 
+from optrace_tpu_torch.ops.cuda_run import conic_run
 from optrace_tpu_torch.tracer import trace_core as ttc
 
 from tests.test_torch_common import jax_trace, torch_trace, assert_sections_agree
@@ -89,25 +90,27 @@ def test_geometry_presets_equal_jax(name):
     assert tgeo.double_gauss in tgeo.geometries and tgeo.ideal_camera in tgeo.geometries
 
 
+def _eye_and_bundle(eye, n):
+    """The JAX package's raytracer of the eye, and a parallel bundle of
+    ``n`` rays at 555 nm (one point at infinity) filling 5.2 mm."""
+    RTj = ot.Raytracer(outline=[-12, 12, -12, 12, -12, 30], no_pol=True)
+    RTj.add(EYES[eye](jgeo))
+    rng = np.random.default_rng(11)
+    r, th = 2.6 * np.sqrt(rng.uniform(0, 1, n)), rng.uniform(0, 2 * np.pi, n)
+    p = np.stack([r * np.cos(th), r * np.sin(th), np.full(n, -10.0)], -1).astype(np.float32)
+    s = np.tile(np.array([0.0, 0.0, 1.0], np.float32), (n, 1))
+    return RTj, (p, s, np.full((n, 3), np.nan, np.float32), np.full(n, 1.0 / n, np.float32),
+                 np.full(n, 555.0, np.float32))
+
+
 @pytest.mark.parametrize("eye", ["arizona", "legrand"])
 def test_eye_sections_on_an_injected_bundle(eye):
     """A parallel bundle at 555 nm (one point at infinity) through the eye's
     steps as the JAX package compiles them: the port's sections equal the
     JAX package's; the runs hold 2 refractions each, under MIN_RUN, so the
     whole eye is unrolled."""
-    def scene(pkg):
-        RT = pkg.Raytracer(outline=[-12, 12, -12, 12, -12, 30], no_pol=True,
-                           **(dict(device="cpu") if pkg is otp else {}))
-        RT.add(EYES[eye](jgeo if pkg is ot else tgeo))
-        return RT
-    RTj = scene(ot)
     n = 20000
-    rng = np.random.default_rng(11)
-    r, th = 2.6 * np.sqrt(rng.uniform(0, 1, n)), rng.uniform(0, 2 * np.pi, n)
-    p = np.stack([r * np.cos(th), r * np.sin(th), np.full(n, -10.0)], -1).astype(np.float32)
-    s = np.tile(np.array([0.0, 0.0, 1.0], np.float32), (n, 1))
-    bundle = (p, s, np.full((n, 3), np.nan, np.float32), np.full(n, 1.0 / n, np.float32),
-              np.full(n, 555.0, np.float32))
+    RTj, bundle = _eye_and_bundle(eye, n)
     out_j, steps_j = jax_trace(RTj, bundle, True, kernel=False)
     out_t, steps_t = torch_trace(RTj, steps_j, bundle, True)
     assert all(k == "step" for k, _ in ttc._partition_runs(steps_t, []))
@@ -116,6 +119,31 @@ def test_eye_sections_on_an_injected_bundle(eye):
     # 0.5 mm) stops part of the 5.2 mm bundle, the Arizona eye's (5.7 mm) none
     passed = out_j["w"][:, -2] > 0
     assert passed.sum() > 0.3 * n and (passed.sum() < n) == (eye == "legrand")
+
+
+@pytest.mark.parametrize("eye", ["arizona", "legrand"])
+def test_eye_short_runs_agree_with_the_unrolled_steps(eye, monkeypatch):
+    """The runs of two refractions that the kernel takes on the card
+    (``_shortest_run`` gives 1 there), traced here through the plain version
+    that the kernel equals bit for bit (``conic_run`` on CPU tensors): two
+    runs, whose sections agree with the unrolled steps of the JAX package
+    and of the port."""
+    n = 20000
+    RTj, bundle = _eye_and_bundle(eye, n)
+    out_j, steps_j = jax_trace(RTj, bundle, True, kernel=False)
+    out_u, _ = torch_trace(RTj, steps_j, bundle, True)
+    lengths = []
+
+    def counted_run(p, s, w, n_tab, med_idx, steps, **kw):
+        lengths.append(len(steps))
+        return conic_run(p, s, w, n_tab, med_idx, steps, **kw)
+    monkeypatch.setattr(ttc, "_shortest_run", lambda *state: 1)
+    monkeypatch.setattr(ttc, "conic_run", counted_run)
+    out_r, _ = torch_trace(RTj, steps_j, bundle, True)
+    assert lengths == [2, 2]
+    assert_sections_agree(out_j, out_r, n)
+    unrolled = {k: out_u[k].numpy() for k in ("p", "w", "n", "infos")}
+    assert_sections_agree(unrolled, out_r, n)
 
 
 def test_markers_and_volumes_are_drawn_not_traced():

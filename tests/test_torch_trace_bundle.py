@@ -10,14 +10,19 @@ stated in tests/test_torch_common.py.
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from optrace_tpu.parallel import render as jrender
 from optrace_tpu.tracer.detector import init_hit_carry as j_init_hit_carry
 
 import optrace_tpu_torch as otp
+from optrace_tpu_torch.ops.cuda_run import conic_run, PreparedRun
 from optrace_tpu_torch.parallel import render as trender
+from optrace_tpu_torch.presets import geometry as tgeo
+from optrace_tpu_torch.tracer import trace_core as ttc
 from optrace_tpu_torch.tracer.detector import init_hit_carry as t_init_hit_carry
 from optrace_tpu_torch.tracer.trace_core import _partition_runs
+from optrace_tpu_torch.utils import tracing
 
 from tests.test_torch_common import (build_scene, double_gauss_scene, make_bundle, jax_trace,
                                      torch_trace, torch_steps, assert_sections_agree,
@@ -56,6 +61,81 @@ def test_partition_of_the_double_gauss():
     steps = torch_steps(RT._build_steps())
     runs = _partition_runs(steps, [])
     assert [(k, len(i)) for k, i in runs] == [("run", 6), ("step", 1), ("run", 8), ("step", 1)]
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: all that the partition's
+    rule reads of where the state lies."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("cuda_trace", [True, False], ids=["cuda_trace", "cuda_trace_off"])
+@pytest.mark.parametrize("derivative", ["none", "rays", "surface", "tangent"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_short_runs_where_the_kernel_takes_them(device, dtype, derivative, cuda_trace):
+    """The Arizona eye's conics come in pairs around the pupil. Where the
+    kernel takes the runs (f32 on a CUDA device, ``cuda_trace`` on, no
+    derivative), each pair is a run; absorbers at a run's edges are still
+    trimmed and a step that a sink consumes still unrolled. Everywhere else
+    the partition is the JAX package's: both pairs under ``MIN_RUN``."""
+    RT = otp.Raytracer(outline=[-12, 12, -12, 12, -12, 30], no_pol=True, device="cpu")
+    RT.add(tgeo.arizona_eye())
+    steps = RT._build_steps()
+    n = 8
+
+    def state(*shape, fill=0.0):
+        t = torch.full(shape, fill, dtype=dtype)
+        return t.as_subclass(_OnCard) if device == "cuda" else t
+    p, s, w, wl = state(n, 3), state(n, 3), state(n, fill=1.0), state(n, fill=555.0)
+    if derivative == "rays":
+        p.requires_grad_()
+    elif derivative == "surface":
+        steps[3].sfns.params["rho"].requires_grad_()
+    kernel = device == "cuda" and dtype == torch.float32 and derivative == "none" and cuda_trace
+    otp.global_options.cuda_trace = cuda_trace
+    try:
+        with fwAD.dual_level():
+            if derivative == "tangent":
+                s = fwAD.make_dual(s, torch.ones_like(s))
+            min_run = ttc._shortest_run(steps, p, s, w, None, wl, True)
+    finally:
+        otp.global_options.cuda_trace = True
+    assert min_run == (1 if kernel else ttc.MIN_RUN)
+    part = _partition_runs(steps, [], min_run=min_run)
+    if not kernel:
+        assert part == _partition_runs(steps, []) == [("step", [i]) for i in range(6)]
+        return
+    assert part == [("run", [0, 1]), ("step", [2]), ("run", [3, 4]), ("step", [5])]
+    otp.global_options.cuda_fuse_planar = True
+    try:
+        # the pupil joins the runs; the end absorber is trimmed off the run's edge
+        assert _partition_runs(steps, [], min_run=1) == [("run", [0, 1, 2, 3, 4]), ("step", [5])]
+        # a sink on the cornea's back: its step unrolled, the pupil trimmed off the next run
+        sink = [False, True, False, False, False, False]
+        assert _partition_runs(steps, [sink], min_run=1) == [
+            ("run", [0]), ("step", [1]), ("step", [2]), ("run", [3, 4]), ("step", [5])]
+    finally:
+        otp.global_options.cuda_fuse_planar = False
+
+
+def test_kernel1_counts_its_refractions():
+    """``conic_run.refractions`` adds a launch's refraction steps, the
+    absorbers inside it left out; both counters of the kernel's share are
+    registered, so a replayed graph adds what its capture counted."""
+    RT = otp.Raytracer(outline=[-12, 12, -12, 12, -12, 30], no_pol=True, device="cpu")
+    RT.add(tgeo.arizona_eye())
+    steps = RT._build_steps()
+    chain = ttc._frame_chain(steps, np.float32)
+    consts = ttc._run_steps(steps, [0, 1, 2, 3, 4], chain, np.asarray(RT.outline, dtype=np.float64))
+    assert PreparedRun(consts, [(0, 1), (1, 2), (2, 2), (2, 3), (3, 0)]).refractions == 4
+    assert PreparedRun(consts[:1], [(0, 1)]).refractions == 1
+    registered = tracing.counts()
+    assert (conic_run, "refractions") in registered
+    assert (ttc.trace_bundle, "unrolled_refractions") in registered
 
 
 class _FakeRT:
