@@ -316,7 +316,7 @@ def capture_run_calls(RT, N, store, seed):
     with RunRecorder() as rec, torch.no_grad():
         p, s, pols, w, wl = RT._make_source_fn(N)(gen)
         trace_core.trace_bundle(steps, RT.n0, tuple(float(v) for v in RT.outline),
-                                p, s, pols, w, wl, RT.no_pol, store_sections=store)
+                                p, s, pols, w, wl, RT.no_pol, RT.use_hurb, gen=gen, store_sections=store)
     return rec.calls
 
 
@@ -1245,12 +1245,13 @@ def eye_phase(ot, smi, n=N_RAYS):
     kernel 1) and on (the pupil joins them: one run of 5), both against the
     unrolled steps (``cuda_trace`` off), the RMS focus near the retina
     against the TMA, detector_image on the spherical retina; kernel 1 on the
-    eye's runs of 2 and on the keratoconic eye's run of one (its posterior
-    cornea) against its plain version."""
+    eye's runs of 2, on the keratoconic eye's run of one (its posterior
+    cornea) and on the pseudophakic eye's runs of 2 (the cornea, the IOL's
+    sphere and even asphere) against its plain version."""
     import numpy as np
     import torch
-    from benchmark import scene_keratoconus
-    from optrace_tpu_torch.ops.cuda_run import conic_run
+    from benchmark import scene_iol, scene_keratoconus
+    from optrace_tpu_torch.ops.cuda_run import conic_run, step_tag
     from optrace_tpu_torch.ops.cuda_binning import bin_xyzw_cuda
     from optrace_tpu_torch.image import render_image as render_image_mod
     from optrace_tpu_torch.utils import tracing
@@ -1312,6 +1313,16 @@ def eye_phase(ot, smi, n=N_RAYS):
     calls = capture_run_calls(scene_keratoconus.build(ot, cfg, 3, no_pol=True), n, False, seed=23)
     assert [len(c["steps"]) for c in calls] == [1, 2]
     rows["conic_run[nopol,nostore]@kerato1"] = check_run_calls(calls[:1], "conic_run[nopol,nostore]@kerato1")
+    # the pseudophakic eye of the cell iol-hurb-psf, as a render batch calls it: the
+    # cornea's run of two, HURB at the pupil (no run takes it), the IOL's sphere and
+    # strongly hyperbolic even asphere
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
+                           "iol_eye.json")) as f:
+        cfg = json.load(f)
+    calls = capture_run_calls(scene_iol.build(ot, cfg, 3, no_pol=True), n, False, seed=24)
+    assert [len(c["steps"]) for c in calls] == [2, 2]
+    assert [step_tag(x) for x in calls[1]["steps"]] == ["conic", "asphere"], calls[1]["steps"]
+    rows["conic_run[nopol,nostore]@iol"] = check_run_calls(calls, "conic_run[nopol,nostore]@iol")
     del calls
     emit(dict(phase="eye", gpu=smi, scene="arizona_eye, point at infinity, 555 nm", N=n,
               runs_flag_off=runs[False], runs_flag_on=runs[True], runs_cuda_trace_off=runs["unrolled"],
@@ -1330,7 +1341,7 @@ def eye_phase(ot, smi, n=N_RAYS):
               detector_image_seconds=t_image, kernel_rows=rows))
     rows["bin_xyzw@eye"] = bin_eye
     return ({"conic_run[nopol,store]@eye5": traced[True][2], "conic_run[nopol,store]@eye2": traced[False][2],
-             "conic_run[nopol,nostore]@kerato1": 1, "bin_xyzw@eye": 1}, rows)
+             "conic_run[nopol,nostore]@kerato1": 1, "conic_run[nopol,nostore]@iol": 2, "bin_xyzw@eye": 1}, rows)
 
 
 # ----------------------------------------------------------------------

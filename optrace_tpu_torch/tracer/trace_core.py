@@ -867,10 +867,14 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
         else:   # absorb
             w = torch.where(hit, 0.0, w)
             if use_hurb and step.hurb:
-                normals = _hurb_normals(gen, p.shape[0], dev, p.dtype)
-                with span("trace_bundle.step"):
-                    s, w, pols, n_neg = _hurb(step, normals, p, s, w, wl, n_amb_last, pols, hw & ~hit,
-                                              no_pol, hurb_factor)
+                # the draws and the bend, timed on the device as one interval
+                # while a profiler records
+                trace_bundle.hurb_rays += p.shape[0]
+                with device_interval("trace_bundle.hurb", dev):
+                    normals = _hurb_normals(gen, p.shape[0], dev, p.dtype)
+                    with span("trace_bundle.step"):
+                        s, w, pols, n_neg = _hurb(step, normals, p, s, w, wl, n_amb_last, pols, hw & ~hit,
+                                                  no_pol, hurb_factor)
                 info[HURB_NEG_DIR] += n_neg
             n_after = n_amb_last
 
@@ -908,4 +912,5 @@ def trace_bundle(steps: list, n0_fn: Callable, outline,
 
 
 trace_bundle.unrolled_refractions = 0   # refractions of a run's kinds that a CUDA device took unrolled
-counted(trace_bundle, "unrolled_refractions")
+trace_bundle.hurb_rays = 0              # the rays that entered a HURB step, on any device
+counted(trace_bundle, "unrolled_refractions", "hurb_rays")
